@@ -1,0 +1,34 @@
+"""Carry inputs and states between dafoam_tpu (numpy side) and the port.
+
+``inputs_from_numpy`` takes a ``make_inputs()``-shaped dict of the JAX
+package (points, bc values, params) as numpy arrays or Python numbers and
+returns the port's tensors on a device and dtype; ``state_from_numpy``
+does the same for a state dict (U, p, phi, nuTilda, ...), and
+``state_to_numpy`` is its inverse.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _to_tensor(v, device, dtype):
+    if isinstance(v, dict):
+        return {k: _to_tensor(x, device, dtype) for k, x in v.items()}
+    return torch.as_tensor(np.array(v), dtype=dtype, device=device)
+
+
+def inputs_from_numpy(inputs: dict, device, dtype) -> dict:
+    """{points, bc: {field: {patch: value}}, params: {name: value}} of
+    numpy values -> the same dict of tensors."""
+    return _to_tensor(inputs, torch.device(device), dtype)
+
+
+def state_from_numpy(state: dict, device, dtype) -> dict:
+    return {k: _to_tensor(v, torch.device(device), dtype)
+            for k, v in state.items()}
+
+
+def state_to_numpy(state: dict) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in state.items()}

@@ -1,0 +1,56 @@
+"""Solver registry and ``make_solver`` (port of ``dafoam_tpu.solvers``)."""
+
+import torch
+
+from dafoam_tpu_torch.mesh.topology import to_dia_dense
+from dafoam_tpu_torch.option import DAOption
+from dafoam_tpu_torch.solvers.base import DASolverBase, PrimalInfo
+from dafoam_tpu_torch.solvers.simple import DASimpleFoam
+
+_SOLVER_REGISTRY = {"DASimpleFoam": DASimpleFoam}
+# solvers of dafoam_tpu that the port does not have yet (ROADMAP.md P8-P9)
+_NOT_PORTED = (
+    "DAScalarTransportFoam", "DAHeatTransferFoam", "DAPimpleFoam",
+    "DASolidDisplacementFoam", "DARhoSimpleFoam", "DARhoSimpleCFoam",
+    "DATurboFoam", "DATopoChtFoam", "DARhoPimpleFoam", "DAPimpleDyMFoam",
+    "DAInterFoam", "DAIrkPimpleFoam", "DAHisaFoam",
+    "DATimeSpectralScalarFoam")
+
+
+def make_solver(option, topo, points, *, device, dtype):
+    """Run-time solver selection (reference DASolver::New(solverName)).
+
+    ``device`` and ``dtype`` say where and in which precision the solver
+    keeps its state, geometry and matrices. meshFaceLayout "auto" picks the
+    dense-DIA face layout on a CUDA device and the canonical one on the
+    CPU; "diaDense" and "canonical" force a layout.
+    """
+    opt = option if isinstance(option, DAOption) else DAOption(option)
+    name = opt["solverName"]
+    if opt["unsteadyAdjoint"].get("mode") == "hybrid":
+        raise NotImplementedError(
+            "unsteadyAdjoint mode 'hybrid' is not ported yet "
+            "(ROADMAP.md queue 1, P9)")
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"solver {name!r} is not ported yet "
+                                  "(ROADMAP.md queue 1, P8-P9)")
+    if name not in _SOLVER_REGISTRY:
+        raise KeyError(f"unknown solver {name!r}; have "
+                       f"{list(_SOLVER_REGISTRY)}")
+    device = torch.device(device)
+    layout = opt.get("meshFaceLayout", "auto")
+    if layout not in ("auto", "diaDense", "canonical"):
+        raise ValueError(f"meshFaceLayout {layout!r}")
+    if layout != "canonical" and topo.dia_dense() is None:
+        if layout == "diaDense" or device.type == "cuda":
+            dense = to_dia_dense(topo)
+            if dense is not None:
+                topo = dense
+            elif layout == "diaDense":
+                raise ValueError("mesh is not banded; diaDense layout "
+                                 "unavailable (use meshFaceLayout=canonical)")
+    return _SOLVER_REGISTRY[name](opt, topo, points, device=device,
+                                  dtype=dtype)
+
+
+__all__ = ["DASolverBase", "PrimalInfo", "DASimpleFoam", "make_solver"]

@@ -1,0 +1,302 @@
+"""Steady incompressible SIMPLE solver with turbulence (port of the primal
+half of ``dafoam_tpu.solvers.simple``).
+
+Reference: DASimpleFoam (src/adjoint/DASolver/DASimpleFoam/: UEqnSimple.H
+momentum predictor, pEqnSimple.H pressure projection). One outer SIMPLE
+iteration runs three solves: a BiCGStab momentum solve (component-major,
+K2), a Jacobi-CG pressure solve (K1) and, with Spalart–Allmaras, a
+BiCGStab nuTilda solve (K1).
+
+The outer loop is Python: each iteration reads the max normalized
+residual and the state validity on the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dafoam_tpu_torch.linalg import fvsolve
+from dafoam_tpu_torch.mesh.geometry import compute_geometry
+from dafoam_tpu_torch.mesh.walldist import compute_wall_distance
+from dafoam_tpu_torch.models import (make_turbulence_model,
+                                     turbulence_model_class)
+from dafoam_tpu_torch.ops import bc, fvc, fvm
+from dafoam_tpu_torch.ops import fvmatrix as fvx
+from dafoam_tpu_torch.ops.core import boundary_gather
+from dafoam_tpu_torch.option import DAOption
+from dafoam_tpu_torch.solvers.base import DASolverBase, PrimalInfo
+from dafoam_tpu_torch.states import StateInfo
+
+
+def _not_ported(what, slice_name):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue 1, {slice_name})")
+
+
+class DASimpleFoam(DASolverBase):
+
+    def __init__(self, option, topo, points, *, device, dtype):
+        opt = option if isinstance(option, DAOption) else DAOption(option)
+        turb_name = opt["turbulenceModel"]
+        model_states = turbulence_model_class(turb_name).model_states
+        if "T" in opt.get("boundaryConditions", {}):
+            raise _not_ported("the passive temperature field of "
+                              "DASimpleFoam", "P8")
+        if opt.get("MRF", {}).get("active"):
+            raise _not_ported("MRF", "P8")
+        if opt.get("fvSource"):
+            raise _not_ported("fvSource", "P8")
+        if opt.get("regressionModel", {}).get("active"):
+            raise _not_ported("regressionModel", "P8")
+        if opt["simple"]["consistent"]:
+            raise _not_ported("SIMPLEC (simple.consistent)", "P4")
+        if not opt["simple"]["momentumPredictor"]:
+            raise _not_ported("momentumPredictor off", "P4")
+        if isinstance(option, dict) and "primalVarBounds" in option:
+            # dafoam_tpu clips U and p to user bounds given this way
+            raise _not_ported("user primalVarBounds on U/p", "P4")
+        self.state_info = StateInfo(vol_vector=("U",), vol_scalar=("p",),
+                                    model=tuple(model_states),
+                                    surface_scalar=("phi",))
+        super().__init__(opt, topo, points, device=device, dtype=dtype)
+
+        # frozen wall distance (meshWaveFrozen semantics), on the host
+        geom0 = compute_geometry(self.points, topo)
+        wd = compute_wall_distance(geom0.cc.cpu().numpy(), points, topo)
+        self.wall_dist = self._tensor(wd)
+        kw = {"bc_spec": self.bc_spec} \
+            if turb_name not in ("None", "laminar") else {}
+        self.turb = make_turbulence_model(turb_name, topo, self.option,
+                                          wall_dist=self.wall_dist, **kw)
+
+        self.div_u_scheme = self.option["divSchemes"].get(
+            "div(phi,U)", "upwind")
+        # an all-Neumann pressure needs adjustPhi and a reference cell
+        if not any(s["type"] == "fixedValue"
+                   for s in self.bc_spec.get("p", {}).values()):
+            raise _not_ported("a pressure without a fixedValue patch "
+                              "(adjustPhi, pRefCell)", "P4")
+        # which boundary faces have a fixed (non-adjustable) velocity
+        ni = topo.n_internal
+        fixed = np.zeros((topo.n_faces - ni,))
+        for p in topo.patches:
+            s = self.bc_spec.get("U", {}).get(p.name, {"type": "zeroGradient"})
+            if s["type"] in ("fixedValue", "noSlip", "empty") \
+                    or p.kind == "empty":
+                fixed[p.start - ni:p.start - ni + p.size] = 1.0
+        self._fixed_flux_b = self._tensor(fixed)
+        self.turb.setup_wall_functions(self.bc_spec)
+        # Krylov work of the inner solves: {equation: [solves, iterations]}
+        self.solve_stats = {}
+
+    def _log_solve(self, name, info):
+        st = self.solve_stats.setdefault(name, [0, 0])
+        st[0] += 1
+        st[1] += info.iters
+
+    # ------------------------------------------------------------------
+    # BC helpers
+    # ------------------------------------------------------------------
+    def _bco_U(self, U, inputs, geom, phi):
+        return bc.coeffs(self.bc_spec["U"], inputs["bc"].get("U", {}),
+                         self.topo, geom, U, rank=1,
+                         phi_b=phi[self.topo.n_internal:])
+
+    def _bco_p(self, p, inputs, geom, phi):
+        return bc.coeffs(self.bc_spec["p"], inputs["bc"].get("p", {}),
+                         self.topo, geom, p, rank=0,
+                         phi_b=phi[self.topo.n_internal:])
+
+    # ------------------------------------------------------------------
+    # shared assembly: momentum eqn + pressure projection pieces
+    # ------------------------------------------------------------------
+    def _ueqn(self, state, inputs, geom):
+        U, phi = state["U"], state["phi"]
+        if inputs["params"].get("alphaPorosity") is not None:
+            raise _not_ported("alphaPorosity", "P8")
+        U_bco = self._bco_U(U, inputs, geom, phi)
+        M = fvm.div(geom, self.topo, phi, U, U_bco, scheme=self.div_u_scheme,
+                    bounded=True) \
+            + self.turb.divdevreff(U, state, inputs, geom, U_bco)
+        alpha = self.option["relaxationFactors"]["equations"].get("U", 0.7)
+        return fvx.relax(M, U, alpha, self.topo), U_bco
+
+    def _projection(self, state, inputs, geom, UEqn, U_bco, U_pred):
+        """rAU, HbyA, phiHbyA and the pressure matrix (SIMPLE; the
+        SIMPLEC and pressure-reference branches of dafoam_tpu are not
+        ported)."""
+        topo = self.topo
+        p, phi = state["p"], state["phi"]
+        p_bco = self._bco_p(p, inputs, geom, phi)
+
+        rAU = 1.0 / fvx.A(UEqn, geom)
+        HbyA = rAU[:, None] * fvx.H(UEqn, U_pred, geom, topo)
+        # boundary HbyA: U's value on value-fixing patches (constrainHbyA),
+        # else extrapolated
+        U_b = bc.boundary_value(U_bco, U_pred, topo)
+        HbyA_own = boundary_gather(HbyA, topo)
+        if self.option["useConstrainHbyA"]:
+            HbyA_b = torch.where(self._fixed_flux_b[:, None] > 0.5,
+                                 U_b, HbyA_own)
+        else:
+            HbyA_b = HbyA_own
+        phiHbyA = fvc.flux(geom, topo, HbyA, HbyA_b)
+
+        rAU_f = fvc.interpolate(geom, topo, rAU, boundary_gather(rAU, topo))
+        pM = fvm.laplacian(geom, topo, rAU_f, p, p_bco)
+        # pEqn: laplacian(rAU, p) == div(phiHbyA)
+        pM = pM.add_source(fvc.div_surface(geom, topo, phiHbyA) * geom.vol)
+        return rAU, rAU_f, HbyA, phiHbyA, pM, p_bco
+
+    def equations(self, state, inputs, geom=None):
+        """The relaxed momentum, pressure and model matrices as the
+        primal step assembles them at ``state`` (the pressure matrix with
+        the momentum predictor taken as U itself): {name: FvMatrix}."""
+        if geom is None:
+            geom = self.geometry(inputs)
+        UEqn, U_bco = self._ueqn(state, inputs, geom)
+        out = {"U": UEqn, "p": self._projection(state, inputs, geom, UEqn,
+                                                 U_bco, state["U"])[4]}
+        if self.turb.model_states:
+            U_b = bc.boundary_value(U_bco, state["U"], self.topo)
+            gradU = fvc.grad(geom, self.topo, state["U"], U_b)
+            relax_t = self.option["relaxationFactors"]["equations"].get(
+                "nuTilda", 0.7)
+            out.update(self.turb.equations(state, inputs, geom,
+                                           state["phi"], gradU, relax_t))
+        return out
+
+    # ------------------------------------------------------------------
+    # primal
+    # ------------------------------------------------------------------
+    def init_state(self):
+        st = super().init_state()
+        geom = compute_geometry(self.points, self.topo)
+        inputs = self.make_inputs()
+        Ubco = bc.coeffs(self.bc_spec["U"], inputs["bc"].get("U", {}),
+                         self.topo, geom, st["U"], rank=1,
+                         phi_b=st["U"].new_zeros((self.topo.n_boundary,)))
+        U_b = bc.boundary_value(Ubco, st["U"], self.topo)
+        st["phi"] = fvc.flux(geom, self.topo, st["U"], U_b)
+        return st
+
+    def primal_step(self, state, inputs, geom=None):
+        """ONE outer SIMPLE iteration w_{k+1} = G(w_k). Returns
+        (new_state, max_normalized_residual as a 0-d tensor)."""
+        if geom is None:
+            geom = self.geometry(inputs)
+        topo = self.topo
+        opt = self.option
+        lin = opt["primalLinearSolver"]
+        alpha_p = opt["relaxationFactors"]["fields"].get("p", 0.3)
+
+        U, p = state["U"], state["p"]
+        UEqn, U_bco = self._ueqn(state, inputs, geom)
+        p_bco = self._bco_p(p, inputs, geom, state["phi"])
+        p_b = bc.boundary_value(p_bco, p, topo)
+        gradp = fvc.grad(geom, topo, p, p_b)
+        rhs_U = -gradp * geom.vol[:, None]
+        res_U = fvsolve.initial_residual_norm(UEqn, U, topo, rhs=rhs_U)
+
+        U_pred, info = fvsolve.solve(
+            UEqn, U, topo, symmetric=False, rel_tol=lin["uRelTol"],
+            max_iters=lin["uMaxIters"], rhs=rhs_U)
+        self._log_solve("U", info)
+
+        rAU, rAU_f, HbyA, phiHbyA, pM, p_bco = self._projection(
+            state, inputs, geom, UEqn, U_bco, U_pred)
+        res_p = fvsolve.initial_residual_norm(pM, p, topo)
+        p_new, info = fvsolve.solve(pM, p, topo, symmetric=True,
+                                    rel_tol=lin["pRelTol"],
+                                    max_iters=lin["pMaxIters"],
+                                    pc=lin.get("pPC", "jacobi"))
+        self._log_solve("p", info)
+        phi_new = phiHbyA - fvm.laplacian_flux(geom, topo, rAU_f, p_new,
+                                               p_bco)
+        # explicit pressure relaxation, then momentum corrector
+        p_rel = p + alpha_p * (p_new - p)
+        p_bco2 = self._bco_p(p_rel, inputs, geom, phi_new)
+        p_b2 = bc.boundary_value(p_bco2, p_rel, topo)
+        gradp2 = fvc.grad(geom, topo, p_rel, p_b2)
+        U_new = HbyA - rAU[:, None] * gradp2
+
+        new_state = dict(state, U=U_new, p=p_rel, phi=phi_new)
+
+        if self.turb.model_states:
+            U_b = bc.boundary_value(U_bco, U_new, topo)
+            gradU = fvc.grad(geom, topo, U_new, U_b)
+            relax_t = opt["relaxationFactors"]["equations"].get(
+                "nuTilda", 0.7)
+            new_state = self.turb.correct(
+                new_state, inputs, geom, phi_new, gradU=gradU,
+                rel_tol=lin["turbRelTol"], max_iters=lin["turbMaxIters"],
+                relax=relax_t)
+            for name in self.turb.model_states:
+                self._log_solve(name, self.turb.last_solve_info)
+
+        return new_state, torch.maximum(res_U, res_p)
+
+    def solve_primal(self, state, inputs):
+        """SIMPLE iterations until max_res <= primalMinResTol (after at
+        least primalMinIters, at most primalMaxIters) or the state turns
+        invalid."""
+        opt = self.option
+        if opt["useMeanStates"]:
+            raise _not_ported("useMeanStates", "P6")
+        fscfg = opt["primalFuncStdTol"]
+        if float(fscfg.get("stdTol", -1.0)) > 0 and any(
+                n in opt["function"] for n in fscfg.get("funcNames", [])):
+            raise _not_ported("primalFuncStdTol tracking", "P6")
+        geom = self.geometry(inputs)
+        tol = opt["primalMinResTol"]
+        max_it = opt["primalMaxIters"]
+        min_it = opt["primalMinIters"]
+        print_int = int(opt["printInterval"])
+        do_print = bool(opt.get("printToScreen", False))
+
+        st, it, res = state, 0, float("inf")
+        while (it < min_it or res > tol) and it < max_it \
+                and self.states_valid(st):
+            st, res_t = self.primal_step(st, inputs, geom)
+            res = float(res_t)
+            it += 1
+            if do_print and it % print_int == 0:
+                print(f"iter {it}: maxRes = {res:.6e}")
+        ok = self.states_valid(st)
+        # checkPrimalFailure parity (reference DASolver.C:2721): fail when
+        # the achieved residual misses primalMinResTol*TolDiff
+        failed = not ok
+        if tol > 0:
+            failed = failed or res > tol * float(opt["primalMinResTolDiff"])
+        return st, PrimalInfo(it, res, res <= tol and ok, failed)
+
+    # ------------------------------------------------------------------
+    # function context
+    # ------------------------------------------------------------------
+    def boundary_fields(self, state, inputs, geom):
+        topo = self.topo
+        U, p, phi = state["U"], state["p"], state["phi"]
+        U_bco = self._bco_U(U, inputs, geom, phi)
+        p_bco = self._bco_p(p, inputs, geom, phi)
+        return {"U": bc.boundary_value(U_bco, U, topo),
+                "p": bc.boundary_value(p_bco, p, topo)}
+
+    def function_ctx(self, state, inputs):
+        ctx = super().function_ctx(state, inputs)
+        geom = ctx["geom"]
+        topo = self.topo
+        ni = topo.n_internal
+        U, phi = state["U"], state["phi"]
+        U_bco = self._bco_U(U, inputs, geom, phi)
+        U_b = bc.boundary_value(U_bco, U, topo)
+        gradU = fvc.grad(geom, topo, U, U_b)
+        sng_b = bc.boundary_sngrad(U_bco, U, topo)
+        nhat = geom.sf[ni:] / torch.clamp_min(geom.magsf[ni:], 1e-36)[:, None]
+        gU_own = boundary_gather(gradU, topo)
+        n_g = (nhat[:, :, None] * gU_own).sum(dim=1)
+        ctx["gradU_b"] = gU_own + nhat[:, :, None] * (sng_b - n_g)[:, None, :]
+        nu = inputs["params"]["nu"]
+        ctx["nu_eff_b"] = self.turb.nut_boundary(state, inputs, geom) + nu
+        ctx["rho_ref"] = inputs["params"].get("rhoRef", 1.0)
+        return ctx
