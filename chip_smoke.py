@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile]
 
 Phases (any failure raises, so the exit code is nonzero; the 512x512
-case is set up once, before phase 3, and reused by phase 5):
+case is set up once, before phase 3, and reused by phases 5 and 6):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; fails when torch sees no CUDA device;
@@ -13,21 +13,43 @@ case is set up once, before phase 3, and reused by phase 5):
 3. kernel vs plain: K1 and K2 against their plain torch versions, float32
    and float64, on the band layout and coefficients of the first p,
    nuTilda and U matrices of the 512x512 NACA0012 case and on edge shapes;
-   bars 1e-6 (f32) and 1e-13 (f64) relative to max|plain|; median times at
-   262,144 cells from CUDA events;
+   bars 1e-6 (f32) and 1e-13 (f64) relative to max|plain|; the times at
+   262,144 cells come after phase 6 (below);
+3b. the same for K3 (K3a dia_matvec_t/_multi_t against transpose_coef +
+   the banded plain version, K3b dia_cotangent/_multi against the JAX
+   backward's formulas), shared and per-component diagonals; then the
+   autograd Functions' vjp and jvp on the card against autograd of the
+   plain banded matvec, and a gradient through them keeps its grad_fn;
 4. golden: the 32x12 NACA0012 SA primal (f64, canonical layout, to
    primalMinResTol 1e-10) through the kernels; CD must match
    tests/golden/values.json naca_sa.CD at 1e-8, and both kernels must have
    been launched, their plain versions not;
+4b. golden adjoint: the same case on the dense-DIA layout with the
+   fixed-point adjoint (mg step-map smoother, fpRelTol 1e-10); dCD/dnu and
+   ||dCD/dpoints|| must meet naca_sa at the CPU test's bars, with every K3
+   kernel launched and no plain version run;
 5. full width: the 512x512 bench case (f32, dense-DIA layout) for 300 SIMPLE
    iterations (one BENCH_ITERS chunk); the state must stay finite and
    valid, the max residual must fall, CD must be finite, and the kernel
-   launch counts must be positive with the plain counts at zero.
+   launch counts must be positive with the plain counts at zero;
+6. full-width adjoint: from phase 5's state, one solve_adjoint call with
+   bench.py's adjEqnOption (one 120-iteration restart cycle, deflation 16,
+   mg smoother, fpRelaxFields p 0.7, normalized), then one
+   total_derivative; prints ms per (I - dG^T) product, resid0 -> resid,
+   launches per product and peak device memory; psibar and the totals must
+   be finite, resid < resid0, every kernel launched and no plain version;
+7. kernel times at 262,144 cells: device time per call (profiler) of each
+   kernel, its plain version and the one-call library equivalent
+   (torch.mv on a CSR copy of the matrix, cuSPARSE), back to back (CUDA
+   events), and the bound. They come last so that no profiler session
+   precedes the main path's timings.
 
-``--profile`` adds a torch.profiler table of one more SIMPLE iteration.
-The last line of standard output is one JSON object with "ok" and the
-device; the line before it lists every kernel with its launches in phase
-5, its error against the plain version and both times.
+``--profile`` adds a torch.profiler table of one more SIMPLE iteration and
+of one (I - dG^T) product. The last line of standard output is one JSON
+object with "ok" and the device; the line before it repeats the card's
+name and power limit, and the one before that lists every kernel with its
+launches on the main path (K1/K2: phase 5, K3: phase 6), its error against
+the plain version, its times and its bound.
 """
 
 import argparse
@@ -53,7 +75,31 @@ KERNELS = {
     "dia_matvec_multi": {
         "replaces": "dafoam_tpu/ops/pallas_kernels.py:175 (dia_matvec_multi),"
                     " :219 (dia_matvec_multi_tiled)"},
+    "dia_matvec_t": {
+        "replaces": "dafoam_tpu/ops/pallas_kernels.py:400-413 "
+                    "(_dia_ad_factory bwd, x_bar via dia_matvec at :406; "
+                    "dia_matvec_ad :419)"},
+    "dia_matvec_multi_t": {
+        "replaces": "dafoam_tpu/ops/pallas_kernels.py:324-338 "
+                    "(_dia_multi_ad_factory bwd, x_bar via "
+                    "dia_matvec_multi_any at :330; dia_matvec_multi_ad :344)"},
+    "dia_cotangent": {
+        "replaces": "dafoam_tpu/ops/pallas_kernels.py:408-412 "
+                    "(_dia_ad_factory bwd, diag_bar and coef_bar)"},
+    "dia_cotangent_multi": {
+        "replaces": "dafoam_tpu/ops/pallas_kernels.py:332-337 "
+                    "(_dia_multi_ad_factory bwd, diag_bar and coef_bar)"},
 }
+PRIMAL_KERNELS = ("dia_matvec", "dia_matvec_multi")
+ADJOINT_KERNELS = tuple(KERNELS)
+# NVIDIA H100 SXM data sheet: HBM3 3.35 TB/s, FP32 (non-tensor) 67 TFLOP/s,
+# both at the 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12
+# golden-case bars of tests/test_torch_adjoint.py
+BAR_DNU = 1e-6
+BAR_DPOINTS = 3.6e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -99,7 +145,21 @@ def bench_options():
         meshFaceLayout="diaDense")
 
 
-def golden_options():
+def bench_adjoint_options():
+    """bench.py's flagship case with its fixed-point adjoint options
+    (bench.py:143-194), one restart cycle per solve_adjoint call."""
+    return dict(bench_options(), adjEqnSolMethod="fixedPoint",
+                adjEqnOption={"fpRelTol": 0.3e-6, "fpMaxIters": 120,
+                              "fpInnerScale": 0.4, "fpInnerSmoother": "mg",
+                              "fpRelaxFields": {"p": 0.7},
+                              "fpAcceleration": "gmres", "gmresRestart": 120,
+                              "gmresDeflate": 16, "gmresAbsTol": 1e-30,
+                              "pcType": "none"},
+                normalizeStates={"U": 1.0, "p": 0.5, "phi": 1.0,
+                                 "nuTilda": 3 * NU})
+
+
+def golden_options(layout="canonical"):
     """tests/test_golden.py:_case_naca_sa, primal options."""
     return naca_options(
         primalMinResTol=1e-10, primalMaxIters=1500,
@@ -108,7 +168,21 @@ def golden_options():
         primalLinearSolver={"pMaxIters": 200, "pRelTol": 0.02,
                             "uMaxIters": 50, "uRelTol": 0.05,
                             "turbMaxIters": 50, "turbRelTol": 0.05},
-        meshFaceLayout="canonical")
+        meshFaceLayout=layout)
+
+
+def golden_adjoint_options():
+    """tests/test_torch_adjoint.py:fp_options: the golden case on the
+    dense-DIA layout with the fixed-point adjoint."""
+    return dict(golden_options("diaDense"), adjEqnSolMethod="fixedPoint",
+                adjEqnOption={"fpRelTol": 1e-10, "fpMaxIters": 2000,
+                              "fpInnerScale": 0.4, "fpInnerSmoother": "mg",
+                              "fpRelaxFields": {"p": 0.7},
+                              "fpAcceleration": "gmres", "gmresRestart": 120,
+                              "gmresDeflate": 16, "gmresAbsTol": 1e-30,
+                              "pcType": "none"},
+                normalizeStates={"U": 1.0, "p": 0.5, "phi": 1.0,
+                                 "nuTilda": 3 * NU})
 
 
 def say(msg):
@@ -192,24 +266,145 @@ def device_us(torch, fn, calls=20):
     return sum(_event_us(e) for e in _kernel_events(prof)) / calls
 
 
-def compare(torch, dk, name, diag, coef, offsets, x, stats, label):
-    kern = getattr(dk, name)
-    plain = getattr(dk, name + "_plain")
-    y = kern(diag, coef, offsets, x)
-    torch.cuda.synchronize()
-    ref = plain(diag, coef, offsets, x)
-    err = float((y - ref).abs().max()) if y.numel() else 0.0
-    scale = float(ref.abs().max()) if ref.numel() else 0.0
-    dt = str(x.dtype).replace("torch.", "")
-    check(bool(torch.isfinite(y).all()), f"{label}: non-finite kernel output")
+def _max_err(torch, got, ref, label):
+    """(max abs err, max |ref|) over one tensor or a tuple of them; checks
+    finiteness and the relative bar of the dtype."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err = scale = 0.0
+    for g, r in zip(got, ref):
+        check(bool(torch.isfinite(g).all()), f"{label}: non-finite output")
+        if g.numel():
+            err = max(err, float((g - r).abs().max()))
+            scale = max(scale, float(r.abs().max()))
+    dt = str(ref[0].dtype).replace("torch.", "")
     check(err <= REL[dt] * max(scale, 1e-300),
           f"{label} {dt}: max err {err:.3e} > {REL[dt]} x {scale:.3e}")
+    return err, scale
+
+
+def kernel_calls(dk, name, diag, coef, offsets, x, ct):
+    """(kernel, plain) zero-argument calls of one wrapper on one operand
+    set: K1/K2 apply A to x, K3a applies A^T to ct, K3b forms the
+    cotangents of (ct, x) with the diagonal's layout."""
+    per_comp = diag.ndim == 2
+    args = {"dia_matvec": (diag, coef, offsets, x),
+            "dia_matvec_multi": (diag, coef, offsets, x),
+            "dia_matvec_t": (diag, coef, offsets, ct),
+            "dia_matvec_multi_t": (diag, coef, offsets, ct),
+            "dia_cotangent": (ct, x, offsets),
+            "dia_cotangent_multi": (ct, x, offsets, per_comp)}[name]
+    kern, plain = getattr(dk, name), getattr(dk, name + "_plain")
+    return (lambda: kern(*args)), (lambda: plain(*args))
+
+
+def compare(torch, dk, name, diag, coef, offsets, x, ct, stats, label):
+    kern, plain = kernel_calls(dk, name, diag, coef, offsets, x, ct)
+    y = kern()
+    torch.cuda.synchronize()
+    err, scale = _max_err(torch, y, plain(), f"{label} {name}")
     st = stats.setdefault(name, {"max_abs_err": 0.0})
     st["max_abs_err"] = max(st["max_abs_err"], err)
     return err, scale
 
 
-def phase_kernels(torch, dk, fvx, solver, stats, profile):
+def bound(name, diag, offsets, x):
+    """(bound_ms, bound_by) of one call: every input read once and every
+    output written once over the HBM rate, against the flops over the
+    peak of the dtype (H100 SXM data sheet); the larger decides."""
+    n = x.shape[-1]
+    c = x.shape[0] if x.ndim == 2 else 1
+    k = len(offsets)
+    nd = diag.numel()
+    if name in ("dia_matvec", "dia_matvec_multi", "dia_matvec_t",
+                "dia_matvec_multi_t"):
+        elems = nd + k * n + 2 * c * n          # d, c, x (ct) in; y out
+        flops = c * n * (2 * k + 1)
+    else:                                       # K3b: ct, x in; dbar, cbar out
+        elems = 2 * c * n + nd + k * n
+        flops = (c * n if nd == c * n else (2 * c - 1) * n) \
+            + k * n * (2 * c - 1)
+    byte_s = elems * x.element_size() / HBM_BYTES_PER_S
+    peak = FP32_FLOP_PER_S if x.element_size() == 4 else FP64_FLOP_PER_S
+    op_s = flops / peak
+    return max(byte_s, op_s) * 1e3, "bytes" if byte_s >= op_s else \
+        "operations"
+
+
+def csr_matrix(torch, diag, coef, offsets, transpose=False):
+    """A (or A^T) as one sparse CSR matrix: block diagonal over the
+    components of a (C, n) diagonal. The library yardstick only."""
+    n = coef.shape[1]
+    dev = coef.device
+    comps = diag.shape[0] if diag.ndim == 2 else 1
+    idx = torch.arange(n, device=dev)
+    rows, cols, vals = [], [], []
+    for q in range(comps):
+        base = q * n
+        rows.append(idx + base)
+        cols.append(idx + base)
+        vals.append(diag[q] if diag.ndim == 2 else diag)
+        for k, o in enumerate(offsets):
+            j = idx + o
+            m = (j >= 0) & (j < n)
+            rows.append(idx[m] + base)
+            cols.append(j[m] + base)
+            vals.append(coef[k][m])
+    r, c = torch.cat(rows), torch.cat(cols)
+    if transpose:
+        r, c = c, r
+    coo = torch.sparse_coo_tensor(torch.stack([r, c]), torch.cat(vals),
+                                  (comps * n, comps * n)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def library_call(torch, name, diag, coef, offsets, x, ct):
+    """The one PyTorch call computing the same function (cuSPARSE SpMV on
+    a CSR copy), or None for K3b (no single-call equivalent)."""
+    if name in ("dia_cotangent", "dia_cotangent_multi"):
+        return None
+    transpose = name.endswith("_t")
+    vec = ct if transpose else x
+    if x.ndim == 2 and diag.ndim == 1:
+        diag = diag.expand(x.shape[0], -1)
+    A = csr_matrix(torch, diag, coef, offsets, transpose)
+    flat = vec.reshape(-1)
+    return lambda: torch.mv(A, flat)
+
+
+def time_kernel(torch, dk, name, diag, coef, offsets, x, ct, stats, label):
+    """Device time per call of the kernel, its plain version and the
+    library call (profiler), the kernel back to back (CUDA events), and
+    the bound; stored in stats for float32."""
+    kern, plain = kernel_calls(dk, name, diag, coef, offsets, x, ct)
+    lib = library_call(torch, name, diag, coef, offsets, x, ct)
+    if lib is not None:
+        want = kern()
+        _max_err(torch, lib().reshape(want.shape), want,
+                 f"{label} {name} library call")
+    kus = device_us(torch, kern)
+    pus = device_us(torch, plain)
+    lus = device_us(torch, lib) if lib is not None else None
+    b2b = cuda_ms(torch, kern)
+    bms, by = bound(name, diag, offsets, x)
+    say(f"[kernels] time {name} {label} {x.dtype}: device {kus:.2f} us, "
+        f"plain {pus:.2f} us, library "
+        f"{'none' if lus is None else f'{lus:.2f} us'}, bound {bms * 1e3:.2f}"
+        f" us ({by}); back to back {b2b * 1e3:.1f} us (CUDA events)")
+    if x.dtype == torch.float32:
+        stats[name].update(ms=kus / 1e3, plain_ms=pus / 1e3,
+                           library_ms=None if lus is None else lus / 1e3,
+                           bound_ms=bms, bound_by=by, back_to_back_ms=b2b)
+
+
+FORWARD = ("dia_matvec", "dia_matvec_multi")
+REVERSE = ("dia_matvec_t", "dia_matvec_multi_t", "dia_cotangent",
+           "dia_cotangent_multi")
+
+
+def _real_operands(torch, fvx, solver):
+    """Band layouts and coefficients of the first p, nuTilda and U matrices
+    of the case, with random x and ct (seeded on the device)."""
     dev = solver.device
     eqs = solver.equations(solver.init_state(), solver.make_inputs())
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -220,80 +415,124 @@ def phase_kernels(torch, dk, fvx, solver, stats, profile):
         offsets, coef = fvx.dia_bands(m, solver.topo)
         if field == "U":
             diag = m.diag.t().contiguous()          # (3, nc) per component
-            x = torch.randn((3, nc), generator=gen, device=dev)
-            name = "dia_matvec_multi"
+            shape = (3, nc)
         else:
             diag = m.diag.contiguous()
-            x = torch.randn((nc,), generator=gen, device=dev)
-            name = "dia_matvec"
-        real.append((field, name, offsets, diag, coef.contiguous(), x))
-    say(f"[kernels] {FULL}x{FULL} bands: offsets {real[0][2]}, n = {nc}")
-    for dtype in (torch.float32, torch.float64):
-        for field, name, offsets, diag, coef, x in real:
-            d, c, xx = (t.to(dtype) for t in (diag, coef, x))
-            err, scale = compare(torch, dk, name, d, c, offsets, xx, stats,
-                                 f"{field} matrix")
-            say(f"[kernels] {name} {field} {dtype}: max abs err {err:.3e} "
-                f"(max |y| {scale:.3e})")
-        # the momentum matrix with a shared scalar diagonal
-        _, _, offsets, diag, coef, x = real[2]
-        compare(torch, dk, "dia_matvec_multi", diag[0].to(dtype).contiguous(),
-                coef.to(dtype), offsets, x.to(dtype), stats, "U shared diag")
+            shape = (nc,)
+        x = torch.randn(shape, generator=gen, device=dev)
+        ct = torch.randn(shape, generator=gen, device=dev)
+        real.append((field, offsets, diag, coef.contiguous(), x, ct))
+    return real
 
-    # edge shapes: ragged n, offsets wider than a block, none, C=1/2/4,
-    # n past the grid cap (grid-stride), 32 offsets
+
+def _edge_shapes(torch, dev):
+    """Ragged n, offsets wider than a block, none, n past the grid cap
+    (grid-stride), 32 offsets, n = 1 and 3."""
     rng = torch.Generator(device="cpu").manual_seed(1)
     wide = tuple(sorted(set(
         int(v) for v in torch.randint(-3000, 3000, (32,), generator=rng))))
-    edges = [(1037, (-33, -1, 1, 33)), (20011, (-5000, -300, 1, 300, 5000)),
-             (4097, ()), (2_100_000, (-1024, -1, 1, 1024)), (9001, wide),
-             (1, (-1, 1)), (3, (5,))]
-    for dtype in (torch.float32, torch.float64):
-        for n, offsets in edges:
-            d = torch.randn((n,), generator=gen, device=dev).to(dtype)
-            c = torch.randn((len(offsets), n), generator=gen,
-                            device=dev).to(dtype)
-            x = torch.randn((n,), generator=gen, device=dev).to(dtype)
-            compare(torch, dk, "dia_matvec", d, c, offsets, x, stats,
-                    f"K1 n={n} K={len(offsets)}")
-            for comps in (1, 2, 3, 4):
-                xc = torch.randn((comps, n), generator=gen,
-                                 device=dev).to(dtype)
-                dc = torch.randn((comps, n), generator=gen,
-                                 device=dev).to(dtype)
-                compare(torch, dk, "dia_matvec_multi", d, c, offsets, xc,
-                        stats, f"K2 C={comps} n={n}")
-                compare(torch, dk, "dia_matvec_multi", dc, c, offsets, xc,
-                        stats, f"K2 C={comps} n={n} per-comp diag")
-    say(f"[kernels] edge shapes pass ({len(edges)} shapes x C in 1,2,3,4 x "
-        "f32/f64)")
+    return [(1037, (-33, -1, 1, 33)), (20011, (-5000, -300, 1, 300, 5000)),
+            (4097, ()), (2_100_000, (-1024, -1, 1, 1024)), (9001, wide),
+            (1, (-1, 1)), (3, (5,))]
 
-    # times at 262,144 cells, float32 and float64, kernel beside plain
+
+def phase_kernels(torch, dk, fvx, solver, stats, names, tag):
+    """Kernels ``names`` (scalar and _multi forms) against their plain
+    versions on the case's matrices and the edge shapes, f32 and f64,
+    shared and per-component diagonals; then their times."""
+    dev = solver.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+    real = _real_operands(torch, fvx, solver)
+    say(f"[{tag}] {FULL}x{FULL} bands: offsets {real[0][1]}, n = "
+        f"{solver.topo.n_cells}")
+    scalar = [nm for nm in names if not nm.endswith(("multi", "multi_t"))]
+    multi = [nm for nm in names if nm not in scalar]
     for dtype in (torch.float32, torch.float64):
-        for field, name, offsets, diag, coef, x in real:
-            d, c, xx = (t.to(dtype) for t in (diag, coef, x))
-            kern = getattr(dk, name)
-            plain = getattr(dk, name + "_plain")
-            ms = cuda_ms(torch, lambda: kern(d, c, offsets, xx))
-            pms = cuda_ms(torch, lambda: plain(d, c, offsets, xx))
-            if dtype == torch.float32 and field in ("p", "U"):
-                stats[name]["ms"], stats[name]["plain_ms"] = ms, pms
-            say(f"[kernels] time {name} {field} {dtype}: kernel {ms:.4f} ms"
-                f", plain {pms:.4f} ms (CUDA events, back-to-back calls)")
-            if profile:
-                kus = device_us(torch, lambda: kern(d, c, offsets, xx))
-                pus = device_us(torch, lambda: plain(d, c, offsets, xx))
-                say(f"[kernels] device time {name} {field} {dtype}: kernel "
-                    f"{kus:.2f} us, plain {pus:.2f} us per call (profiler)")
+        for field, offsets, diag, coef, x, ct in real:
+            d, c, xx, cc = (t.to(dtype) for t in (diag, coef, x, ct))
+            for nm in (multi if field == "U" else scalar):
+                err, scale = compare(torch, dk, nm, d, c, offsets, xx, cc,
+                                     stats, f"{field} matrix")
+                say(f"[{tag}] {nm} {field} {dtype}: max abs err {err:.3e} "
+                    f"(max |y| {scale:.3e})")
+        # the momentum matrix with a shared scalar diagonal
+        _, offsets, diag, coef, x, ct = real[2]
+        for nm in multi:
+            compare(torch, dk, nm, diag[0].to(dtype).contiguous(),
+                    coef.to(dtype), offsets, x.to(dtype), ct.to(dtype),
+                    stats, "U shared diag")
+
+    for dtype in (torch.float32, torch.float64):
+        for n, offsets in _edge_shapes(torch, dev):
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen,
+                                   device=dev).to(dtype)
+            d, c, x, ct = rnd(n), rnd(len(offsets), n), rnd(n), rnd(n)
+            for nm in scalar:
+                compare(torch, dk, nm, d, c, offsets, x, ct, stats,
+                        f"n={n} K={len(offsets)}")
+            for comps in (1, 2, 3, 4):
+                xc, cc, dc = rnd(comps, n), rnd(comps, n), rnd(comps, n)
+                for nm in multi:
+                    compare(torch, dk, nm, d, c, offsets, xc, cc, stats,
+                            f"C={comps} n={n}")
+                    compare(torch, dk, nm, dc, c, offsets, xc, cc, stats,
+                            f"C={comps} n={n} per-comp diag")
+    say(f"[{tag}] edge shapes pass ({len(_edge_shapes(torch, dev))} shapes x"
+        " C in 1,2,3,4 x shared/per-component diagonal x f32/f64)")
+    return real
+
+
+def phase_kernel_times(torch, dk, real, stats):
+    """Times of every kernel at 262,144 cells: p for the scalar forms, U
+    for the multi forms. Runs after the main path, so that no profiler
+    session precedes the timed SIMPLE iterations and adjoint products."""
+    for dtype in (torch.float32, torch.float64):
+        for field, offsets, diag, coef, x, ct in (real[0], real[2]):
+            d, c, xx, cc = (t.to(dtype) for t in (diag, coef, x, ct))
+            for nm in KERNELS:
+                if nm.endswith(("multi", "multi_t")) == (field == "U"):
+                    time_kernel(torch, dk, nm, d, c, offsets, xx, cc, stats,
+                                field)
+
+
+def phase_functions(torch, dk, real):
+    """DiaMatvec/DiaMatvecMulti on the card: output keeps its grad_fn; vjp
+    and jvp against autograd of the plain banded matvec, f64."""
+    import torch.autograd.forward_ad as fwAD
+    for field, offsets, diag, coef, x, ct in real:
+        fn = dk.DiaMatvecMulti if field == "U" else dk.DiaMatvec
+        d, c, xx, cc = (t.double() for t in (diag, coef, x, ct))
+        prim = [t.clone().requires_grad_(True) for t in (d, c, xx)]
+        y = fn.apply(*prim, offsets)
+        check(y.requires_grad and y.grad_fn is not None,
+              f"{field}: a gradient through the kernel lost its grad_fn")
+        got = torch.autograd.grad(y, prim, cc)
+        ref_in = [t.clone().requires_grad_(True) for t in (d, c, xx)]
+        want = torch.autograd.grad(dk._banded(*ref_in[:2], offsets,
+                                              ref_in[2]), ref_in, cc)
+        err, _ = _max_err(torch, tuple(got), tuple(want), f"{field} vjp")
+        tang = [torch.randn_like(t) for t in (d, c, xx)]
+        with fwAD.dual_level():
+            duals = [fwAD.make_dual(p, t) for p, t in zip((d, c, xx), tang)]
+            jt = fwAD.unpack_dual(fn.apply(*duals, offsets)).tangent
+            duals = [fwAD.make_dual(p, t) for p, t in zip((d, c, xx), tang)]
+            jr = fwAD.unpack_dual(dk._banded(duals[0], duals[1], offsets,
+                                             duals[2])).tangent
+        err2, _ = _max_err(torch, jt, jr, f"{field} jvp")
+        say(f"[functions] {fn.__name__} {field} f64 on the card: vjp max err "
+            f"{err:.3e}, jvp max err {err2:.3e} against autograd of the "
+            "plain banded matvec; output has a grad_fn")
 
 
 # ---------------------------------------------------------------------------
 # phase 4-5
 # ---------------------------------------------------------------------------
 
-def check_counts(counts, phase):
-    for name in KERNELS:
+def check_counts(counts, phase, names=PRIMAL_KERNELS):
+    for name in names:
         check(counts[name] > 0, f"{phase}: {name} was not launched")
+    for name in KERNELS:
         check(counts[name + "_plain"] == 0, f"{phase}: {name}_plain ran")
 
 
@@ -321,11 +560,44 @@ def phase_golden(torch, dk, make_solver, omesh):
     check_counts(counts, "golden")
 
 
+def phase_golden_adjoint(torch, dk, make_solver, omesh):
+    """Phase 4b: the golden case's fixed-point adjoint and totals."""
+    with open(os.path.join(HERE, "tests", "golden", "values.json")) as fh:
+        want = json.load(fh)["naca_sa"]
+    pts, topo = omesh(n_wrap=32, n_radial=12, radius=15.0, first_cell=4e-3)
+    s = make_solver(golden_adjoint_options(), topo, pts, device=DEVICE,
+                    dtype=torch.float64)
+    check(s.topo.dia_dense() is not None, "golden adjoint runs dense-DIA")
+    inputs = s.make_inputs()
+    state, info = s.run_primal(s.init_state(), inputs)
+    check(info.converged and not info.failed, f"golden primal: {info}")
+    dk.reset_counts()
+    t0 = time.perf_counter()
+    psibar, ainfo = s.solve_adjoint(state, inputs, "CD")
+    tot = s.total_derivative(state, inputs, "CD", psibar)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(dk.COUNTS)
+    dnu = float(tot["params"]["nu"])
+    dpts = float(torch.linalg.norm(tot["points"]))
+    rnu = abs(dnu - want["dCD_dnu"]) / abs(want["dCD_dnu"])
+    rpts = abs(dpts - want["dCD_dpoints_norm"]) / want["dCD_dpoints_norm"]
+    say(f"[golden-adjoint] 32x12 f64 dense: primal {info.iters} iters; "
+        f"adjoint {ainfo.iters} GMRES iters, resid {ainfo.resid0:.3e} -> "
+        f"{ainfo.resid:.3e}, {dt:.1f} s with totals; dCD/dnu {dnu!r} (rel "
+        f"{rnu:.2e}), ||dCD/dpoints|| {dpts!r} (rel {rpts:.2e}); launch "
+        f"counts {counts}")
+    check(ainfo.converged, f"golden adjoint did not converge: {ainfo}")
+    check(rnu <= BAR_DNU, f"dCD/dnu off golden by {rnu:.2e}")
+    check(rpts <= BAR_DPOINTS, f"||dCD/dpoints|| off golden by {rpts:.2e}")
+    check_counts(counts, "golden adjoint", ADJOINT_KERNELS)
+
+
 def setup_full(torch, make_solver, omesh):
     t0 = time.perf_counter()
     pts, topo = omesh(n_wrap=FULL, n_radial=FULL, radius=15.0,
                       first_cell=4e-3)
-    s = make_solver(bench_options(), topo, pts, device=DEVICE,
+    s = make_solver(bench_adjoint_options(), topo, pts, device=DEVICE,
                     dtype=torch.float32)
     inputs = s.make_inputs()
     st0 = s.init_state()
@@ -385,16 +657,106 @@ def phase_profile(torch, s, inputs, st):
         f"{wall * 1e3:.2f} ms wall")
 
 
+def phase_adjoint(torch, dk, adjsolver, s, inputs, st):
+    """Phase 6, the adjoint's main path: one solve_adjoint call (one
+    restart cycle) and one total_derivative from the 300-iteration state.
+    Returns the launch counts of the solve."""
+    restart = s.option["adjEqnOption"]["gmresRestart"]
+    state = {k: v.detach() for k, v in st.items()}
+    dk.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psibar, ainfo = s.solve_adjoint(state, inputs, "CD")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(dk.COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    # products: the initial residual, one true residual per restart cycle
+    # and one per Arnoldi step
+    products = ainfo.iters + math.ceil(ainfo.iters / restart) + 1
+    per = {k: counts[k] / products for k in REVERSE}
+    say(f"[adjoint] {FULL}x{FULL} f32 fixed-point adjoint: {ainfo.iters} "
+        f"GMRES iters ({products} (I - dG^T) products) in {dt:.2f} s = "
+        f"{dt / products * 1e3:.1f} ms per product; resid0 "
+        f"{ainfo.resid0:.6e} -> resid {ainfo.resid:.6e}; peak device "
+        f"memory {peak:.0f} MiB")
+    say("[adjoint] K3 launches per product: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in per.items()) + f"; forward K1 "
+        f"{counts['dia_matvec']}, K2 {counts['dia_matvec_multi']} (one "
+        "recorded step map)")
+    say(f"[adjoint] launch counts {counts}")
+
+    # one product alone, on the recorded graph
+    step = s._fp_step_fn()
+    _, f_vjp = adjsolver.vjp(lambda w: step(w, inputs)[0], state)
+    f_vjp(psibar)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        f_vjp(psibar)
+    torch.cuda.synchronize()
+    one = (time.perf_counter() - t0) / 5
+    say(f"[adjoint] one dG^T v product alone: {one * 1e3:.1f} ms (host "
+        "clock, mean of 5)")
+
+    t0 = time.perf_counter()
+    tot = s.total_derivative(state, inputs, "CD", psibar)
+    torch.cuda.synchronize()
+    dnu = float(tot["params"]["nu"])
+    dpts = float(torch.linalg.norm(tot["points"]))
+    say(f"[adjoint] total_derivative {time.perf_counter() - t0:.2f} s: "
+        f"dCD/dnu {dnu!r}, ||dCD/dpoints|| {dpts!r}")
+    check(all(bool(torch.isfinite(v).all()) for v in psibar.values()),
+          "psibar is not finite")
+    check(math.isfinite(dnu) and math.isfinite(dpts), "totals not finite")
+    check(ainfo.resid < ainfo.resid0,
+          f"adjoint residual did not fall: {ainfo}")
+    check_counts(counts, "full-width adjoint", ADJOINT_KERNELS)
+    return counts, f_vjp, psibar
+
+
+def phase_profile_product(torch, f_vjp, v):
+    """One (I - dG^T) product under the profiler: kernels, host syncs and
+    the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f_vjp(v)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        f_vjp(v)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    key = "self_device_time_total" \
+        if hasattr(ka[0], "self_device_time_total") else "self_cuda_time_total"
+    say("[profile] one dG^T v product, top 10 by device time:")
+    say(ka.table(sort_by=key, row_limit=10, max_name_column_width=48))
+    kernels = _kernel_events(prof)
+    dia = [e for e in kernels if "dia_" in e.name]
+    syncs = sum(1 for e in prof.events()
+                if e.name == "aten::_local_scalar_dense")
+    busy_ms = sum(_event_us(e) for e in kernels) / 1e3
+    say(f"[profile] product: {len(kernels)} device kernels ({len(dia)} DIA "
+        f"kernels, {sum(_event_us(e) for e in dia) / 1e3:.3f} ms), host "
+        f"syncs {syncs}, device busy {busy_ms:.2f} ms of {wall * 1e3:.2f} ms"
+        " wall")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one SIMPLE iteration at 512x512")
+                    help="also profile one SIMPLE iteration and one adjoint "
+                         "product at 512x512")
     args = ap.parse_args()
 
     import torch
     card = phase_device(torch)
 
     sys.path.insert(0, HERE)
+    from dafoam_tpu_torch.adjoint import solver as adjsolver
     from dafoam_tpu_torch.mesh.airfoil import omesh_naca0012
     from dafoam_tpu_torch.ops import dia_kernels as dk
     from dafoam_tpu_torch.ops import fvmatrix as fvx
@@ -403,8 +765,11 @@ def main():
     phase_build(dk)
     stats = {}
     s, inputs, st0 = setup_full(torch, make_solver, omesh_naca0012)
-    phase_kernels(torch, dk, fvx, s, stats, args.profile)
+    real = phase_kernels(torch, dk, fvx, s, stats, FORWARD, "kernels")
+    phase_kernels(torch, dk, fvx, s, stats, REVERSE, "k3")
+    phase_functions(torch, dk, real)
     phase_golden(torch, dk, make_solver, omesh_naca0012)
+    phase_golden_adjoint(torch, dk, make_solver, omesh_naca0012)
 
     st, res1, info, dt, counts, cd = run_full(torch, dk, s, inputs, st0)
     per = {k: v[1] / ITERS for k, v in s.solve_stats.items()}
@@ -424,18 +789,28 @@ def main():
     check(math.isfinite(cd), f"CD not finite: {cd}")
     check_counts(counts, "full width")
 
+    adj_counts, f_vjp, psibar = phase_adjoint(torch, dk, adjsolver, s,
+                                              inputs, st)
+    phase_kernel_times(torch, dk, real, stats)
+
     if args.profile:
         phase_profile(torch, s, inputs, st)
+        phase_profile_product(torch, f_vjp, psibar)
 
     rows = []
     for name, meta in KERNELS.items():
         st_k = stats[name]
+        launches = counts[name] if name in PRIMAL_KERNELS else \
+            adj_counts[name]
         rows.append({"name": name, "route": "cuda",
                      "source": "dafoam_tpu_torch/csrc/dia_matvec.cu",
                      "replaces": meta["replaces"],
-                     "launches": counts[name],
+                     "launches": launches,
                      "max_abs_err": st_k["max_abs_err"],
-                     "ms": st_k["ms"], "plain_ms": st_k["plain_ms"]})
+                     "ms": st_k["ms"], "plain_ms": st_k["plain_ms"],
+                     "bound_ms": st_k["bound_ms"],
+                     "bound_by": st_k["bound_by"],
+                     "library_ms": st_k["library_ms"]})
     say(json.dumps({"kernels": rows}))
     say(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,184 @@
+"""Fixed-point discrete adjoint on the primal step map, and its totals.
+
+Port of the fixed-point half of ``dafoam_tpu.adjoint.solver``
+(``adjoint_solve_fp``, ``total_derivative_fp``,
+``forward_total_derivative_fp``, ``dJdW_of``). The reference is DAFoam's
+``adjEqnSolMethod: fixedPoint`` (runFPAdj, DASimpleFoam.C:189): with the
+primal's outer iteration w_{k+1} = G(w_k) the adjoint solves
+
+    (I - dG/dW^T) psibar = dJ/dW,    dJ/dx = pJ/px + psibar^T pG/px.
+
+Autograd replaces ``jax.vjp``/``jax.jvp``:
+
+- the reverse product dG^T v re-walks ONE recorded graph of G
+  (``torch.autograd.grad`` with ``retain_graph=True``), so each GMRES
+  iteration costs a backward pass and no forward;
+- the forward (tangent) product dG v runs G once per product under
+  ``torch.autograd.forward_ad``: ``torch.func.linearize`` would trace G
+  with ``make_fx``, and the DIA kernels launch through ctypes, which a
+  trace cannot capture.
+
+Vectors are dicts of tensors shaped like the state (inputs-shaped for
+totals); ``scales`` (normalizeStates) turn the solve into the similarity
+transform (I - S dG^T S^-1) y = S g, psibar = y / S.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.autograd.forward_ad as fwAD
+
+from dafoam_tpu_torch.linalg.krylov import (SolveInfo, gmres, taxpy, tnorm,
+                                            tzeros_like)
+from dafoam_tpu_torch.utils import tree
+
+
+def _scale(t, scales: dict | None, invert=False):
+    if not scales:
+        return t
+    out = {}
+    for k, v in t.items():
+        s = scales.get(k, 1.0)
+        out[k] = v / s if invert else v * s
+    return out
+
+
+def _requiring_grad(t):
+    """A detached copy of every leaf, marked to require grad."""
+    return tree.tmap(lambda v: v.detach().requires_grad_(True), t)
+
+
+def _grad(outputs, inputs, grad_outputs=None, retain_graph=False):
+    """d(outputs)/d(inputs) as a tree shaped like ``inputs``, zeros where an
+    input does not reach the outputs."""
+    ins = tree.leaves(inputs)
+    outs = tree.leaves(outputs)
+    gos = None if grad_outputs is None else tree.leaves(grad_outputs)
+    gs = torch.autograd.grad(outs, ins, grad_outputs=gos,
+                             retain_graph=retain_graph, allow_unused=True)
+    return tree.unflatten(inputs, [torch.zeros_like(i) if g is None else g
+                                   for i, g in zip(ins, gs)])
+
+
+def vjp(fn: Callable, primals):
+    """(fn(primals) detached, v -> v^T d fn/d primals). The graph is
+    recorded once and re-walked by every call of the returned function."""
+    p = _requiring_grad(primals)
+    with torch.enable_grad():
+        out = fn(p)
+
+    def f_vjp(v):
+        return _grad(out, p, v, retain_graph=True)
+
+    return tree.tmap(torch.Tensor.detach, out), f_vjp
+
+
+def jvp(fn: Callable, primals, tangents):
+    """(fn(primals), d fn/d primals . tangents) by forward-mode AD."""
+    with torch.no_grad(), fwAD.dual_level():
+        duals = tree.tmap(lambda p, t: fwAD.make_dual(p, t.to(p.dtype)),
+                          primals, tangents)
+        out = fn(duals)
+        prim = tree.tmap(lambda o: fwAD.unpack_dual(o).primal, out)
+        tan = tree.tmap(lambda o: fwAD.unpack_dual(o).tangent, out)
+    tan = tree.tmap(lambda t, p: torch.zeros_like(p) if t is None else t,
+                    tan, prim)
+    return prim, tan
+
+
+def dJdW_of(func_fn: Callable, state, inputs):
+    """pJ/pW, the seed of the adjoint right-hand side."""
+    w = _requiring_grad(state)
+    with torch.enable_grad():
+        J = func_fn(w, inputs)
+    return _grad(J, w)
+
+
+def adjoint_solve_fp(step_fn: Callable, state, inputs, dJdW,
+                     rel_tol=1e-6, abs_tol=1e-14, max_iters=1000,
+                     relax=1.0, accel="gmres", restart=60, psi0=None,
+                     deflate=0, scales: dict | None = None,
+                     aug0=None, return_aug=False, remat=False):
+    """Solve (I - dG/dW^T) psibar = dJ/dW on the step map ``step_fn``
+    ((W, inputs) -> (W_next, residual)); only W_next is used.
+
+    accel "gmres": deflated restarted GMRES (``linalg/krylov.gmres``;
+    aug0/return_aug carry the (deflate, n_flat) recycle space across
+    calls, in the SCALED flat space). accel "richardson": plain sweeps
+    y <- y + relax (S g - (I - S dG^T S^-1) y). Returns (psibar,
+    SolveInfo[, recycle space]); psi0/psibar are unscaled at the API.
+    """
+    if remat:
+        raise NotImplementedError(
+            "fpRemat is not ported yet (ROADMAP.md queue 1)")
+    _, f_vjp = vjp(lambda w: step_fn(w, inputs)[0], state)
+
+    def matv(v):
+        g = f_vjp(_scale(v, scales, invert=True))
+        return tree.tmap(torch.sub, v, _scale(g, scales))
+
+    rhs = _scale(dJdW, scales)
+    x0 = None if psi0 is None else _scale(psi0, scales)
+    if accel == "gmres":
+        out = gmres(matv, rhs, x0=x0, restart=restart, rel_tol=rel_tol,
+                    abs_tol=abs_tol, max_iters=max_iters, deflate=deflate,
+                    aug0=aug0, return_aug=return_aug)
+        return (_scale(out[0], scales, invert=True), *out[1:])
+
+    # Richardson (reference-parity plain sweeps), same transformed system
+    x = tzeros_like(rhs) if x0 is None else x0
+    tol = max(rel_tol * float(tnorm(rhs)), abs_tol)
+
+    def resid(x):
+        return tree.tmap(torch.sub, rhs, matv(x))
+
+    r = resid(x)
+    r0 = rn = float(tnorm(r))
+    it = 0
+    while it < max_iters and math.isfinite(rn) and rn > tol:
+        x = taxpy(relax, r, x)
+        r = resid(x)
+        rn = float(tnorm(r))
+        it += 1
+    out = (_scale(x, scales, invert=True), SolveInfo(it, r0, rn, rn <= tol))
+    # richardson has no recycle space: aug0 passes through unchanged
+    return (*out, aug0) if return_aug else out
+
+
+def total_derivative_fp(step_fn: Callable, func_fn: Callable, state,
+                        inputs, psibar):
+    """dJ/dx = pJ/px + psibar^T pG/px for every leaf of ``inputs``."""
+    x = _requiring_grad(inputs)
+    with torch.enable_grad():
+        J = func_fn(state, x)
+    pJpx = _grad(J, x)
+    _, fx_vjp = vjp(lambda xx: step_fn(state, xx)[0], inputs)
+    gx = fx_vjp(psibar)
+    return tree.tmap(torch.add, pJpx, gx)
+
+
+def forward_total_derivative_fp(step_fn: Callable, func_fn: Callable,
+                                state, inputs, dx, rel_tol=1e-6,
+                                abs_tol=1e-30, max_iters=1000, restart=60,
+                                deflate=0, scales: dict | None = None):
+    """Tangent twin of the fixed-point adjoint: solve (I - dG/dW) dW =
+    pG/px dx with the same deflated GMRES, then dJ = pJ/pW dW + pJ/px dx.
+    Each product runs the step map once in forward mode. scales: the same
+    normalized metric (here the conjugation is S^-1 dG S)."""
+    _, b = jvp(lambda x: step_fn(state, x)[0], inputs, dx)
+
+    def mat(v):
+        _, g = jvp(lambda w: step_fn(w, inputs)[0], state,
+                   _scale(v, scales))
+        return tree.tmap(torch.sub, v, _scale(g, scales, invert=True))
+
+    y, info = gmres(mat, _scale(b, scales, invert=True), restart=restart,
+                    rel_tol=rel_tol, abs_tol=abs_tol, max_iters=max_iters,
+                    deflate=deflate)
+    dW = _scale(y, scales)
+    _, dJ_w = jvp(lambda w: func_fn(w, inputs), state, dW)
+    _, dJ_x = jvp(lambda x: func_fn(state, x), inputs, dx)
+    return dJ_w + dJ_x, info

@@ -4,7 +4,14 @@
 package (points, bc values, params) as numpy arrays or Python numbers and
 returns the port's tensors on a device and dtype; ``state_from_numpy``
 does the same for a state dict (U, p, phi, nuTilda, ...), and
-``state_to_numpy`` is its inverse.
+``state_to_numpy`` is its inverse. The same two carry the fixed-point
+adjoint's psibar (a state-shaped dict) either way.
+
+``recycle_from_numpy``/``recycle_to_numpy`` carry the deflated GMRES
+recycle space (aug0/return_aug), a (k, n_flat) array over the state
+flattened in sorted-key order: ``dafoam_tpu`` flattens with
+``ravel_pytree`` and the port with ``utils.tree.ravel``, which visit a
+dict's keys in the same sorted order, so the columns line up.
 """
 
 from __future__ import annotations
@@ -32,3 +39,13 @@ def state_from_numpy(state: dict, device, dtype) -> dict:
 
 def state_to_numpy(state: dict) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def recycle_from_numpy(aug, device, dtype) -> torch.Tensor:
+    """(k, n_flat) recycle space of dafoam_tpu's gmres -> a tensor."""
+    return torch.as_tensor(np.array(aug), dtype=dtype,
+                           device=torch.device(device))
+
+
+def recycle_to_numpy(aug) -> np.ndarray:
+    return aug.detach().cpu().numpy()

@@ -10,13 +10,20 @@ the inner Krylov solve started from zero and its tolerance relative to
 
 Vector equations on a banded mesh run TRANSPOSED, component-major (C, nc),
 so every momentum matvec is one K2 launch over all three components.
+
+Inside ``fixed_inner()`` (the fixed-point adjoint's step map) every solve
+dispatches to ``solve_fixed``: a fixed number of smoother sweeps in
+defect-correction form, exactly differentiable by autograd.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from dafoam_tpu_torch.linalg.krylov import bicgstab, cg
+from dafoam_tpu_torch.linalg.krylov import (SolveInfo, bicgstab, cg,
+                                            chebyshev_steps, jacobi_steps)
 from dafoam_tpu_torch.ops.fvmatrix import FvMatrix, matvec, matvec_fn
 from dafoam_tpu_torch.utils.precision import guard_tiny
 
@@ -31,15 +38,38 @@ def _component_major_ok(m: FvMatrix, psi0, topo) -> bool:
     return psi0.ndim == 2 and topo.dia() is not None
 
 
+# Scoped switch: inside fixed_inner(), every solve — in the solver's own
+# step and in the turbulence model's correct() — dispatches to solve_fixed
+# with n_iters = round(scale * max_iters). The fixed-point adjoint wraps
+# its step map in this context.
+_FIXED_INNER: list = []
+
+
+@contextlib.contextmanager
+def fixed_inner(scale: float = 1.0, smoother: str = "linear"):
+    _FIXED_INNER.append((float(scale), str(smoother)))
+    try:
+        yield
+    finally:
+        _FIXED_INNER.pop()
+
+
 def solve(m: FvMatrix, psi0, topo, symmetric=False, rel_tol=1e-7,
           abs_tol=1e-50, max_iters=500, rhs=None, pc: str = "jacobi"):
     """Solve M x = source (+rhs) starting from psi0. Returns (x, SolveInfo)
-    of the inner correction solve."""
+    of the inner correction solve (inside ``fixed_inner``: of the fixed
+    smoother, with iters = its sweep budget)."""
+    if _FIXED_INNER:
+        scale, smoother = _FIXED_INNER[-1]
+        n = max(1, int(round(scale * max_iters)))
+        x = solve_fixed(m, psi0, topo, symmetric=symmetric, n_iters=n,
+                        rhs=rhs, smoother=smoother)
+        return x, SolveInfo(n, 0.0, 0.0, True)
     if pc != "jacobi":
         raise NotImplementedError(
-            f"pc={pc!r} is not ported yet: the line and multigrid "
-            "preconditioners arrive with the adjoint slice "
-            "(ROADMAP.md queue 1, P3)")
+            f"pc={pc!r} is not ported yet: the primal's line and "
+            "multigrid preconditioners (linalg/lines.py, mg.mg_solver) "
+            "come with the residual-form adjoint (ROADMAP.md queue 1, P3)")
     b = m.source if rhs is None else m.source + rhs
     cm = _component_major_ok(m, psi0, topo)
     if cm:
@@ -64,6 +94,88 @@ def solve(m: FvMatrix, psi0, topo, symmetric=False, rel_tol=1e-7,
     if cm:
         x = x.t()
     return x, info
+
+
+def solve_fixed(m: FvMatrix, psi0, topo, symmetric=False, n_iters=20,
+                rhs=None, smoother="linear"):
+    """FIXED-ITERATION approximate solve x = x0 + C(b - A x0): the smoother
+    variant of ``solve`` used by the fixed-point adjoint's step map.
+
+    Autograd through it is the exact transpose of the map computed. At a
+    converged primal any smooth approximate inverse C gives exact totals
+    (the dC terms carry the defect b - A x ~ R -> 0), so C is built from
+    a DETACHED copy of the matrix (frozen internal matvecs, frozen
+    diagonal) while the outer defect keeps the live matrix: the reverse
+    pass never differentiates the multigrid/PCR/Chebyshev coefficient
+    algebra. The damped-Jacobi scan keeps the live matrix (its matrix
+    dependence is plain bilinear products).
+
+    smoother="mg": geometric-multigrid defect correction (``linalg/mg.py``)
+    for scalar equations on a grid-form mesh, else falls through to
+    "line": ADI line solves for scalar equations on a dense-DIA layout
+    with line directions (not ported yet: raises), else to "linear":
+    Chebyshev on the Jacobi-preconditioned operator for symmetric
+    equations, damped Jacobi otherwise. smoother="krylov" (the frozen
+    CG/BiCGStab step scans) is not ported yet and raises.
+    """
+    b = m.source if rhs is None else m.source + rhs
+    cm = _component_major_ok(m, psi0, topo)
+    if cm:
+        b = b.t().contiguous()
+        d = m.diag[None, :] if m.diag.ndim == 1 else m.diag.t().contiguous()
+        x0 = psi0.t().contiguous()
+    else:
+        d = m.diag if m.diag.ndim == psi0.ndim else m.diag[..., None]
+        x0 = psi0
+
+    mv = matvec_fn(m, topo, component_major=cm)
+    msg = m._replace(diag=m.diag.detach(), lower=m.lower.detach(),
+                     upper=m.upper.detach())
+    mv_f = matvec_fn(msg, topo, component_major=cm)
+    d_f = d.detach()
+    td = guard_tiny(d_f.dtype)
+    dinv = 1.0 / torch.where(torch.abs(d_f) > td, d_f, 1.0)
+
+    if smoother == "mg":
+        from dafoam_tpu_torch.linalg import mg as mgmod
+        if x0.ndim == 1 and mgmod.grid_structure(topo) is not None:
+            h = mgmod.build_hierarchy(msg, topo)
+            sweeps = max(1, min(2, int(round(n_iters / 15))))
+            r = b - mv(x0)           # live defect
+            c = mgmod.vcycle(h, r, omega=1.7)
+            for _ in range(sweeps - 1):
+                c = c + mgmod.vcycle(h, r - mv_f(c), omega=1.7)
+            return x0 + c
+        smoother = "line"  # no grid form: fall through to ADI lines
+
+    if smoother == "line":
+        from dafoam_tpu_torch.linalg.lines import line_directions
+        if x0.ndim == 1 and line_directions(topo):
+            raise NotImplementedError(
+                "fpInnerSmoother 'line' (ADI line solves) is not ported yet "
+                "(ROADMAP.md queue 1: linalg/lines.py)")
+        smoother = "linear"  # vector eq / no dense-DIA layout: fall back
+
+    if smoother != "linear":
+        raise NotImplementedError(
+            f"fpInnerSmoother {smoother!r} (cg_steps/bicgstab_steps) is not "
+            "ported yet (ROADMAP.md queue 1)")
+    r0 = b - mv(x0)                  # live defect
+    if symmetric:
+        # certain Gershgorin bound for lam(D^-1 A) of the FROZEN matrix: a
+        # Chebyshev polynomial evaluated outside its target interval grows
+        # like cosh(k acosh(1+eps))
+        from dafoam_tpu_torch.ops.core import face_sum_pair
+        row_off = face_sum_pair(torch.abs(msg.upper), torch.abs(msg.lower),
+                                topo)
+        dabs = torch.abs(msg.diag)
+        lam_hi = 1.0 + torch.max(
+            row_off / torch.clamp_min(dabs, guard_tiny(dabs.dtype)))
+        x = x0 + chebyshev_steps(mv_f, dinv, r0, n_steps=int(n_iters),
+                                 lam_max=1.05 * lam_hi)
+    else:
+        x = x0 + jacobi_steps(mv, dinv, r0, n_steps=int(n_iters))
+    return x.t() if cm else x
 
 
 def initial_residual_norm(m: FvMatrix, psi, topo, rhs=None):

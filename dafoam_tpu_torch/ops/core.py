@@ -11,8 +11,9 @@ cells. Two internal-face layouts are supported, as in ``dafoam_tpu``:
   ``c`` to ``c + offsets[i]``, so every cell<->face movement is a broadcast
   or a static zero-padded shift.
 
-Forward functions only: the transposes arrive with the adjoint slice.
-Topology index arrays are copied to the device once and cached on the
+The adjoint differentiates these with autograd; ``abs_ad`` gives |x| the
+derivative convention of ``jnp.abs`` where x is exactly 0 (zero faces of
+the dense layout, orthogonal faces). Topology index arrays are copied to the device once and cached on the
 topology object, keyed on device (and dtype for weights).
 """
 
@@ -20,6 +21,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def abs_ad(x: torch.Tensor) -> torch.Tensor:
+    """|x| whose derivative at x == 0 is +1, as ``jnp.abs``'s (torch.abs
+    has 0 there), so the port's reverse and forward products agree with
+    dafoam_tpu's at exact zeros."""
+    return torch.where(x >= 0, x, -x)
 
 
 def _cache(topo) -> dict:

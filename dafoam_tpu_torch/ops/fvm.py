@@ -13,9 +13,10 @@ import torch
 
 from dafoam_tpu_torch.ops import fvc
 from dafoam_tpu_torch.ops.bc import BCoef, boundary_value
-from dafoam_tpu_torch.ops.core import (boundary_gather, boundary_scatter_add,
-                                       cell_to_face_nei, cell_to_face_own,
-                                       face_sum_pair, face_sum_signed)
+from dafoam_tpu_torch.ops.core import (abs_ad, boundary_gather,
+                                       boundary_scatter_add, cell_to_face_nei,
+                                       cell_to_face_own, face_sum_pair,
+                                       face_sum_signed)
 from dafoam_tpu_torch.ops.fvmatrix import FvMatrix
 from dafoam_tpu_torch.utils.precision import sq_guard
 
@@ -81,8 +82,8 @@ def _limit_correction(corr, orth, limit, psi):
         mag_c = torch.sqrt(torch.clamp_min((corr * corr).sum(-1), 1e-36))
         mag_o = torch.sqrt(torch.clamp_min((orth * orth).sum(-1), 1e-36))
     else:
-        mag_c = torch.abs(corr)
-        mag_o = torch.abs(orth)
+        mag_c = abs_ad(corr)
+        mag_o = abs_ad(orth)
     # the floor keeps denom^2 a normal number in either precision (the
     # adjoint's quotient rule divides by it); where mag_c is that tiny,
     # corr ~ 0 and the limiter value is irrelevant

@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from dafoam_tpu_torch.ops import dia_kernels
-from dafoam_tpu_torch.ops.core import (_shift_bwd, cell_to_face_nei,
+from dafoam_tpu_torch.ops.core import (_shift_bwd, abs_ad, cell_to_face_nei,
                                        cell_to_face_own, face_sum_pair,
                                        index_tensor)
 
@@ -129,16 +129,20 @@ def matvec_fn(m: FvMatrix, topo, component_major: bool = False):
     """Return a matvec closure with the band coefficients precomputed.
 
     On the banded mesh (``topo.dia()``) each application is the DIA
-    matvec: K1 (``dia_kernels.dia_matvec``) for scalar equations, K2
-    (``dia_kernels.dia_matvec_multi``) for component-major (C, n)
-    operands of vector equations. On a CUDA device these launch the
-    hand-written kernels, on the CPU their plain torch versions.
+    matvec through the autograd Functions of ``ops/dia_kernels.py``:
+    ``DiaMatvec`` (K1) for scalar equations, ``DiaMatvecMulti`` (K2) for
+    component-major (C, n) operands of vector equations. Their reverse
+    rule is K3 and their jvp two K1/K2 calls, so the closure is
+    differentiable in the matrix and the operand in both AD modes (the
+    JAX package's ``no_pallas`` switch for forward mode has no
+    counterpart here). On a CUDA device they launch the hand-written
+    kernels, on the CPU their plain torch versions.
 
     component_major=True returns a closure over (C, n) operands with the
     SHARED band coefficients; the diagonal may be shared (nc,) or per
-    component (nc, C). Callers (fvsolve.solve) transpose once at solve
-    entry and exit. Falls back to the face-based ``matvec`` when the mesh
-    is not banded (cell-major only).
+    component (nc, C). Callers (fvsolve) transpose once at solve entry and
+    exit. Falls back to the face-based ``matvec`` when the mesh is not
+    banded (cell-major only).
     """
     bands = dia_bands(m, topo)
     if bands is None:
@@ -146,23 +150,26 @@ def matvec_fn(m: FvMatrix, topo, component_major: bool = False):
             raise ValueError("component-major matvec needs a banded mesh")
         return lambda x: matvec(m, x, topo)
     offsets, coef = bands
+    coef = coef.contiguous()
     d0 = m.diag
 
     if component_major:
         # (C, n) diagonal, or (n,) shared by every component
-        dT = d0.t().contiguous() if d0.ndim == 2 else d0
+        dT = d0.t().contiguous() if d0.ndim == 2 else d0.contiguous()
 
         def mv_t(x):  # x (C, n)
-            return dia_kernels.dia_matvec_multi(dT, coef, offsets, x)
+            return dia_kernels.DiaMatvecMulti.apply(dT, coef, x.contiguous(),
+                                                    offsets)
 
         return mv_t
 
     if d0.ndim != 1:
         raise ValueError("cell-major banded matvec needs a scalar diagonal; "
                          "vector equations run component-major")
+    d0 = d0.contiguous()
 
     def mv(x):
-        return dia_kernels.dia_matvec(d0, coef, offsets, x)
+        return dia_kernels.DiaMatvec.apply(d0, coef, x.contiguous(), offsets)
 
     return mv
 
@@ -205,10 +212,10 @@ def relax(m: FvMatrix, psi: torch.Tensor, alpha: float, topo) -> FvMatrix:
     (Dnew - Dold)*psi_current so the converged solution is unchanged."""
     if alpha >= 1.0 - 1e-12:
         return m
-    sum_off = face_sum_pair(torch.abs(m.upper), torch.abs(m.lower), topo)
+    sum_off = face_sum_pair(abs_ad(m.upper), abs_ad(m.lower), topo)
     d0 = m.diag
     so = sum_off[:, None] if d0.ndim == 2 else sum_off
-    dmag = torch.maximum(torch.abs(d0), so)
+    dmag = torch.maximum(abs_ad(d0), so)
     dnew = torch.where(d0 >= 0, dmag, -dmag) / alpha
     src = m.source + (dnew - d0) * psi
     return m._replace(diag=dnew, source=src)

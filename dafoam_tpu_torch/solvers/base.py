@@ -7,21 +7,29 @@ mesh, primal loop control and failure handling. Here:
   of tensors on the solver's device;
 - ``solve_primal`` is a Python loop over device work, run under
   ``torch.no_grad()`` by ``run_primal``;
+- ``solve_adjoint`` / ``total_derivative`` / ``forward_total_derivative``:
+  the fixed-point adjoint of the primal step map (``adjoint/solver.py``)
+  with the state normalization of the reference (normalizeStates,
+  DASolver.C:2356);
 - primal failure detection (NaN/blow-up -> invalid state; reference
   DASolver::validateStates / checkPrimalFailure, DASolver.C:3787).
 
-The adjoint, totals and the jit-mode entry points of the JAX base class
-arrive with the adjoint slice and raise here.
+The residual-form (Krylov) adjoint and ``fpInnerMode: implicit`` raise
+with their ROADMAP item; the JAX package's ``jitMode`` has no counterpart
+(PyTorch runs eagerly).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from dafoam_tpu_torch.adjoint import solver as adjsolver
 from dafoam_tpu_torch.functions import evaluate_function
+from dafoam_tpu_torch.linalg import fvsolve
 from dafoam_tpu_torch.mesh.geometry import compute_geometry
 from dafoam_tpu_torch.option import DAOption
 from dafoam_tpu_torch.states import StateInfo, StateLayout
@@ -32,8 +40,10 @@ _PARAMETRIC_BC_TYPES = (
     "varyingVelocityInletOutlet", "homTemp", "wallHeatFluxTransfer",
     "fixedWallHeatFlux")
 
-_ADJOINT_SLICE = ("the adjoint and totals are not ported yet "
-                  "(ROADMAP.md queue 1, P5)")
+_RESIDUAL_ADJOINT = (
+    "the residual-form (Krylov) adjoint is not ported yet: use "
+    "adjEqnSolMethod fixedPoint (ROADMAP.md queue 1: adjoint/precond.py, "
+    "adjoint_solve, fvsolve.solve as an autograd.Function)")
 
 
 class PrimalInfo(NamedTuple):
@@ -139,14 +149,141 @@ class DASolverBase:
         with torch.no_grad():
             return self.eval_function(name, state, inputs)
 
-    def solve_adjoint(self, *args, **kw):
-        raise NotImplementedError(_ADJOINT_SLICE)
+    # ------------------------------------------------------------------
+    # adjoint + totals (fixed-point mode)
+    # ------------------------------------------------------------------
+    def state_scales(self, geom) -> dict:
+        """normalizeStates per state; phi scales by the face area, with a
+        neutral 1 on the degenerate (zero-area) padded faces of the
+        dense-DIA layout."""
+        ns = self.option["normalizeStates"]
+        out = {}
+        for name, _k in self.state_info.ordered:
+            s = ns.get(name, 1.0)
+            if name == "phi":
+                out[name] = s * torch.where(geom.magsf > 0.0, geom.magsf,
+                                            1.0)
+            else:
+                out[name] = self._tensor(s)
+        return out
 
-    def total_derivative(self, *args, **kw):
-        raise NotImplementedError(_ADJOINT_SLICE)
+    def _fp_adjoint(self) -> bool:
+        """True when the fixed-point adjoint is selected (this solver has
+        the step map it needs); the residual-form adjoint raises."""
+        if self.option["adjEqnSolMethod"] != "fixedPoint":
+            raise NotImplementedError(_RESIDUAL_ADJOINT)
+        if not hasattr(self, "primal_step"):
+            raise NotImplementedError(
+                f"{type(self).__name__} has no primal_step; "
+                "adjEqnSolMethod fixedPoint is unavailable")
+        return True
 
-    run_adjoint = solve_adjoint
-    run_totals = total_derivative
+    def _fp_step_fn(self):
+        """The differentiable step map of the fixed-point adjoint: one
+        primal step with every inner solve as a fixed smoother
+        (``fvsolve.fixed_inner``, fpInnerScale x the primal's maxIters,
+        fpInnerSmoother) and the fpRelaxFields FIELD-relaxation overrides.
+        Field relaxation is an explicit post-solve blend, so the primal's
+        W* stays an exact fixed point for any alpha; equation relaxation
+        changes rAU and is refused (fpRelaxEquations)."""
+        opt = self.option["adjEqnOption"]
+        if opt.get("fpInnerMode", "fixed") == "implicit":
+            raise NotImplementedError(
+                "fpInnerMode 'implicit' is not ported yet: it needs "
+                "fvsolve.solve as an autograd.Function with tight transpose "
+                "solves (ROADMAP.md queue 1)")
+        scale = float(opt.get("fpInnerScale", 1.0))
+        smoother = str(opt.get("fpInnerSmoother", "linear"))
+        rf_f = dict(opt.get("fpRelaxFields", {}) or {})
+        if opt.get("fpRelaxEquations"):
+            raise ValueError(
+                "fpRelaxEquations is not supported: overriding implicit "
+                "(equation) relaxation changes rAU and shifts the step "
+                "map's fixed point away from the primal solution, "
+                "silently corrupting totals. Only fpRelaxFields (explicit "
+                "field relaxation) preserves the fixed point exactly.")
+
+        @contextlib.contextmanager
+        def _relax_override():
+            rf = self.option["relaxationFactors"]
+            if not rf_f:
+                yield
+                return
+            old_f = rf.get("fields", {})
+            rf["fields"] = dict(old_f, **rf_f)
+            try:
+                yield
+            finally:
+                rf["fields"] = old_f
+
+        def step(w, x):
+            with _relax_override(), fvsolve.fixed_inner(scale, smoother):
+                return self.primal_step(w, x)
+
+        return step
+
+    def _fp_scales(self, inputs):
+        if not self.option["adjEqnOption"].get("fpNormalize", True):
+            return None
+        with torch.no_grad():
+            return self.state_scales(self.geometry(inputs))
+
+    def solve_adjoint_rhs(self, state, inputs, dJdW, psi0=None, aug0=None,
+                          return_aug=False):
+        """Solve the adjoint for a caller-supplied right-hand side pytree
+        (the MPhys ``solve_linear`` contract). Fixed-point mode returns
+        psibar (step-map convention); pair it with total_derivative."""
+        self._fp_adjoint()
+        opt = self.option["adjEqnOption"]
+        return adjsolver.adjoint_solve_fp(
+            self._fp_step_fn(), state, inputs, dJdW,
+            rel_tol=opt.get("fpRelTol", 1e-6),
+            abs_tol=opt["gmresAbsTol"],
+            max_iters=opt.get("fpMaxIters", 1000),
+            relax=opt.get("fpRelaxation", 1.0),
+            accel=opt.get("fpAcceleration", "gmres"),
+            restart=opt["gmresRestart"], psi0=psi0,
+            deflate=int(opt.get("gmresDeflate", 0)),
+            scales=self._fp_scales(inputs),
+            aug0=aug0, return_aug=return_aug,
+            remat=bool(opt.get("fpRemat", False)))
+
+    def solve_adjoint(self, state, inputs, func_name, psi0=None, aug0=None,
+                      return_aug=False):
+        dJdW = adjsolver.dJdW_of(
+            lambda w, x: self.eval_function(func_name, w, x), state, inputs)
+        return self.solve_adjoint_rhs(state, inputs, dJdW, psi0=psi0,
+                                      aug0=aug0, return_aug=return_aug)
+
+    def total_derivative(self, state, inputs, func_name, psi):
+        """dJ/dx for every leaf of ``inputs`` from the adjoint vector."""
+        self._fp_adjoint()
+        return adjsolver.total_derivative_fp(
+            self._fp_step_fn(),
+            lambda w, x: self.eval_function(func_name, w, x),
+            state, inputs, psi)
+
+    def forward_total_derivative(self, state, inputs, func_name, dx):
+        """dJ = dJ/dx . dx by the tangent twin of the adjoint (the
+        reference's forward-mode cross-check)."""
+        self._fp_adjoint()
+        opt = self.option["adjEqnOption"]
+        return adjsolver.forward_total_derivative_fp(
+            self._fp_step_fn(),
+            lambda w, x: self.eval_function(func_name, w, x),
+            state, inputs, dx,
+            rel_tol=opt.get("fpRelTol", 1e-6),
+            abs_tol=opt["gmresAbsTol"],
+            max_iters=opt.get("fpMaxIters", 1000),
+            restart=opt["gmresRestart"],
+            deflate=int(opt.get("gmresDeflate", 0)),
+            scales=self._fp_scales(inputs))
+
+    def run_adjoint(self, func_name, state, inputs):
+        return self.solve_adjoint(state, inputs, func_name)
+
+    def run_totals(self, func_name, state, inputs, psi):
+        return self.total_derivative(state, inputs, func_name, psi)
 
     # ------------------------------------------------------------------
     # failure detection (reference DASolver::validateStates, DASolver.C:3787)
