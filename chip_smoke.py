@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--profile]
 
 Phases (any failure raises, so the exit code is nonzero; the 512x512
-case is set up once, before phase 3, and reused by phases 5 and 6):
+case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; fails when torch sees no CUDA device;
@@ -14,12 +14,11 @@ case is set up once, before phase 3, and reused by phases 5 and 6):
    and float64, on the band layout and coefficients of the first p,
    nuTilda and U matrices of the 512x512 NACA0012 case and on edge shapes;
    bars 1e-6 (f32) and 1e-13 (f64) relative to max|plain|; the times at
-   262,144 cells come after phase 6 (below);
-3b. the same for K3 (K3a dia_matvec_t/_multi_t against transpose_coef +
-   the banded plain version, K3b dia_cotangent/_multi against the JAX
-   backward's formulas), shared and per-component diagonals; then the
-   autograd Functions' vjp and jvp on the card against autograd of the
-   plain banded matvec, and a gradient through them keeps its grad_fn;
+   262,144 cells come after phase 6b (below);
+3b. the same for K3 (K3a dia_matvec_t/_multi_t, K3b dia_cotangent/_multi),
+   shared and per-component diagonals; then the autograd Functions' vjp
+   and jvp on the card against autograd of the plain banded matvec, and a
+   gradient through them keeps its grad_fn;
 4. golden: the 32x12 NACA0012 SA primal (f64, canonical layout, to
    primalMinResTol 1e-10) through the kernels; CD must match
    tests/golden/values.json naca_sa.CD at 1e-8, and both kernels must have
@@ -28,31 +27,51 @@ case is set up once, before phase 3, and reused by phases 5 and 6):
    fixed-point adjoint (mg step-map smoother, fpRelTol 1e-10); dCD/dnu and
    ||dCD/dpoints|| must meet naca_sa at the CPU test's bars, with every K3
    kernel launched and no plain version run;
+4c. golden residual form: from 4b's converged state, the residual-form
+   (Krylov) adjoint with golden naca_sa's adjEqnOption (FGMRES restart
+   400 to rel 1e-9, segregated PC) and its totals, at the same bars; the
+   PC's transposed products must have launched K3a, no plain version;
+4d. golden implicit: the fixed-point totals of 4b with fpInnerMode
+   "implicit" (every inner solve differentiated by fvsolve's implicit
+   rule: tight transpose solves through K3a, the matrix cotangent through
+   K3b), at the same bars;
 5. full width: the 512x512 bench case (f32, dense-DIA layout) for 300 SIMPLE
    iterations (one BENCH_ITERS chunk); the state must stay finite and
    valid, the max residual must fall, CD must be finite, and the kernel
    launch counts must be positive with the plain counts at zero;
+5b. line PC: 20 SIMPLE iterations from phase 5's state with pPC "line"
+   (ADI line solves, BiCGStab); p iterations per solve against Jacobi-CG's
+   cap of 50;
 6. full-width adjoint: from phase 5's state, one solve_adjoint call with
    bench.py's adjEqnOption (one 120-iteration restart cycle, deflation 16,
    mg smoother, fpRelaxFields p 0.7, normalized), then one
    total_derivative; prints ms per (I - dG^T) product, resid0 -> resid,
    launches per product and peak device memory; psibar and the totals must
    be finite, resid < resid0, every kernel launched and no plain version;
+6b. full-width residual form: from phase 5's state, one 60-iteration
+   FGMRES cycle of the residual-form adjoint with pcType "segregated" and
+   one with "coupledLine", each followed by total_derivative; prints the
+   ms to build the PC, ms per preconditioned iteration, resid0 -> resid,
+   peak device memory and launches per iteration; psi and the totals must
+   be finite, K3a launched and no plain version;
 7. kernel times at 262,144 cells: device time per call (profiler) of each
    kernel, its plain version and the one-call library equivalent
    (torch.mv on a CSR copy of the matrix, cuSPARSE), back to back (CUDA
    events), and the bound. They come last so that no profiler session
    precedes the main path's timings.
 
-``--profile`` adds a torch.profiler table of one more SIMPLE iteration and
-of one (I - dG^T) product. The last line of standard output is one JSON
-object with "ok" and the device; the line before it repeats the card's
-name and power limit, and the one before that lists every kernel with its
-launches on the main path (K1/K2: phase 5, K3: phase 6), its error against
+``--profile`` adds a torch.profiler table of one more SIMPLE iteration, of
+one (I - dG^T) product and of one residual-form iteration (a residual vjp
+and one segregated PC application). The last line of standard output is
+one JSON object with "ok" and the device; the line before it repeats the
+card's name and power limit, and the one before that lists every kernel
+with its launches on the full-width paths (phases 5, 5b, 6 and 6b, each
+counted from zero; "launches_by_path" splits them), its error against
 the plain version, its times and its bound.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -183,6 +202,41 @@ def golden_adjoint_options():
                               "pcType": "none"},
                 normalizeStates={"U": 1.0, "p": 0.5, "phi": 1.0,
                                  "nuTilda": 3 * NU})
+
+
+# tests/test_golden.py:_case_naca_sa's residual-form adjoint options
+GOLDEN_KRYLOV = {"gmresRelTol": 1e-9, "gmresRestart": 400,
+                 "gmresMaxIters": 3000, "pcType": "segregated"}
+
+
+def golden_residual_options():
+    """The golden case on the dense-DIA layout with its own residual-form
+    (Krylov, the default adjEqnSolMethod) adjoint options."""
+    return dict(golden_options("diaDense"),
+                adjEqnOption=dict(GOLDEN_KRYLOV),
+                normalizeStates={"U": 1.0, "p": 0.5, "phi": 1.0,
+                                 "nuTilda": 3 * NU})
+
+
+def golden_implicit_options():
+    """Phase 4b's options with every inner solve differentiated by the
+    implicit rule."""
+    opts = golden_adjoint_options()
+    opts["adjEqnOption"]["fpInnerMode"] = "implicit"
+    return opts
+
+
+@contextlib.contextmanager
+def overridden(option, **items):
+    """Set top-level options of a solver for the duration of a block."""
+    old = {k: option[k] for k in items}
+    for k, v in items.items():
+        option.set(k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            option.set(k, v)
 
 
 def say(msg):
@@ -591,6 +645,66 @@ def phase_golden_adjoint(torch, dk, make_solver, omesh):
     check(rnu <= BAR_DNU, f"dCD/dnu off golden by {rnu:.2e}")
     check(rpts <= BAR_DPOINTS, f"||dCD/dpoints|| off golden by {rpts:.2e}")
     check_counts(counts, "golden adjoint", ADJOINT_KERNELS)
+    return state, want
+
+
+def _golden_totals(torch, tot, want):
+    dnu = float(tot["params"]["nu"])
+    dpts = float(torch.linalg.norm(tot["points"]))
+    return (dnu, dpts, abs(dnu - want["dCD_dnu"]) / abs(want["dCD_dnu"]),
+            abs(dpts - want["dCD_dpoints_norm"]) / want["dCD_dpoints_norm"])
+
+
+def _golden_solve(torch, dk, make_solver, omesh, opts, state):
+    """solve_adjoint + total_derivative of the golden case with ``opts``
+    from a converged state: (info, totals, seconds, launch counts)."""
+    pts, topo = omesh(n_wrap=32, n_radial=12, radius=15.0, first_cell=4e-3)
+    s = make_solver(opts, topo, pts, device=DEVICE, dtype=torch.float64)
+    inputs = s.make_inputs()
+    dk.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psi, ainfo = s.solve_adjoint(state, inputs, "CD")
+    tot = s.total_derivative(state, inputs, "CD", psi)
+    torch.cuda.synchronize()
+    return ainfo, tot, time.perf_counter() - t0, dict(dk.COUNTS)
+
+
+def phase_golden_residual(torch, dk, make_solver, omesh, state, want):
+    """Phase 4c: the golden case by the residual-form (Krylov) route."""
+    ainfo, tot, dt, counts = _golden_solve(
+        torch, dk, make_solver, omesh, golden_residual_options(), state)
+    dnu, dpts, rnu, rpts = _golden_totals(torch, tot, want)
+    say(f"[golden-residual] 32x12 f64 dense, FGMRES restart 400, segregated "
+        f"PC: {ainfo.iters} iters, resid {ainfo.resid0:.3e} -> "
+        f"{ainfo.resid:.3e}, {dt:.1f} s with totals; dCD/dnu {dnu!r} (rel "
+        f"{rnu:.2e}), ||dCD/dpoints|| {dpts!r} (rel {rpts:.2e}); launch "
+        f"counts {counts}")
+    check(ainfo.converged, f"golden residual adjoint: {ainfo}")
+    check(rnu <= BAR_DNU, f"residual dCD/dnu off golden by {rnu:.2e}")
+    check(rpts <= BAR_DPOINTS,
+          f"residual ||dCD/dpoints|| off golden by {rpts:.2e}")
+    check_counts(counts, "golden residual", ("dia_matvec_t",
+                                             "dia_matvec_multi_t"))
+
+
+def phase_golden_implicit(torch, dk, make_solver, omesh, state, want):
+    """Phase 4d: the fixed-point totals with fpInnerMode implicit."""
+    ainfo, tot, dt, counts = _golden_solve(
+        torch, dk, make_solver, omesh, golden_implicit_options(), state)
+    dnu, dpts, rnu, rpts = _golden_totals(torch, tot, want)
+    say(f"[golden-implicit] 32x12 f64 dense, fpInnerMode implicit: "
+        f"{ainfo.iters} GMRES iters, resid {ainfo.resid0:.3e} -> "
+        f"{ainfo.resid:.3e}, {dt:.1f} s with totals; dCD/dnu {dnu!r} (rel "
+        f"{rnu:.2e}), ||dCD/dpoints|| {dpts!r} (rel {rpts:.2e}); transpose "
+        f"solves and cotangents: K3a {counts['dia_matvec_t']} + "
+        f"{counts['dia_matvec_multi_t']}, K3b {counts['dia_cotangent']} + "
+        f"{counts['dia_cotangent_multi']}; launch counts {counts}")
+    check(ainfo.converged, f"golden implicit adjoint: {ainfo}")
+    check(rnu <= BAR_DNU, f"implicit dCD/dnu off golden by {rnu:.2e}")
+    check(rpts <= BAR_DPOINTS,
+          f"implicit ||dCD/dpoints|| off golden by {rpts:.2e}")
+    check_counts(counts, "golden implicit", ADJOINT_KERNELS)
 
 
 def setup_full(torch, make_solver, omesh):
@@ -716,40 +830,136 @@ def phase_adjoint(torch, dk, adjsolver, s, inputs, st):
     return counts, f_vjp, psibar
 
 
-def phase_profile_product(torch, f_vjp, v):
-    """One (I - dG^T) product under the profiler: kernels, host syncs and
-    the device's busy share."""
+def phase_line_primal(torch, dk, s, inputs, st):
+    """Phase 5b: 20 SIMPLE iterations from phase 5's state with the line
+    preconditioner on the pressure. Returns the launch counts."""
+    iters = 20
+    lin = dict(s.option["primalLinearSolver"], pPC="line")
+    s.solve_stats.clear()
+    with overridden(s.option, primalLinearSolver=lin, primalMinIters=iters,
+                    primalMaxIters=iters):
+        dk.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st2, info = s.run_primal(st, inputs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(dk.COUNTS)
+    per = {k: v[1] / v[0] for k, v in s.solve_stats.items()}
+    say(f"[line] {FULL}x{FULL} f32, pPC line: {iters} SIMPLE iterations in "
+        f"{dt:.2f} s = {dt / iters * 1e3:.2f} ms/iter; max_res "
+        f"{info.max_res:.4e}; Krylov iterations per solve: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+        + f" (Jacobi-CG p: its cap of "
+        f"{s.option['primalLinearSolver']['pMaxIters']}); launch counts "
+        f"{counts}")
+    check(info.iters == iters and s.states_valid(st2) and not info.failed,
+          f"line-PC primal: {info}")
+    check_counts(counts, "line-PC primal")
+    return counts
+
+
+def phase_residual_full(torch, dk, s, inputs, st):
+    """Phase 6b: one 60-iteration FGMRES cycle of the residual-form adjoint
+    per pcType from phase 5's state, each followed by the totals. Returns
+    {pcType: launch counts of the solve}."""
+    state = {k: v.detach() for k, v in st.items()}
+    out = {}
+    for pc_type in ("segregated", "coupledLine"):
+        adj = dict(s.option["adjEqnOption"], pcType=pc_type,
+                   gmresRestart=60, gmresMaxIters=60, gmresDeflate=0)
+        with overridden(s.option, adjEqnSolMethod="Krylov",
+                        adjEqnOption=adj):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pc = s.make_adjoint_pc(state, inputs)
+            torch.cuda.synchronize()
+            build_ms = (time.perf_counter() - t0) * 1e3
+            dk.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            psi, ainfo = s.solve_adjoint(state, inputs, "CD", precond=pc)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = dict(dk.COUNTS)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            t0 = time.perf_counter()
+            tot = s.total_derivative(state, inputs, "CD", psi)
+            torch.cuda.synchronize()
+            tt = time.perf_counter() - t0
+        n = max(ainfo.iters, 1)
+        dnu = float(tot["params"]["nu"])
+        dpts = float(torch.linalg.norm(tot["points"]))
+        say(f"[residual] {FULL}x{FULL} f32 {pc_type}: PC built in "
+            f"{build_ms:.1f} ms; {ainfo.iters} FGMRES iters in {dt:.2f} s = "
+            f"{dt / n * 1e3:.1f} ms per preconditioned iteration (dJ/dW and "
+            f"the residual graph's recording included); resid0 "
+            f"{ainfo.resid0:.6e} -> resid {ainfo.resid:.6e}; peak device "
+            f"memory {peak:.0f} MiB; total_derivative {tt:.2f} s: dCD/dnu "
+            f"{dnu!r}, ||dCD/dpoints|| {dpts!r}")
+        say(f"[residual] {pc_type} launches per iteration: " + ", ".join(
+            f"{k} {counts[k] / n:.2f}" for k in KERNELS)
+            + f"; launch counts {counts}")
+        check(all(bool(torch.isfinite(v).all()) for v in psi.values()),
+              f"{pc_type}: psi is not finite")
+        check(math.isfinite(dnu) and math.isfinite(dpts),
+              f"{pc_type}: totals not finite")
+        check(ainfo.iters == 60, f"{pc_type}: {ainfo}")
+        check_counts(counts, f"full-width residual {pc_type}",
+                     ("dia_matvec_t", "dia_matvec_multi_t"))
+        out[pc_type] = counts
+    return out
+
+
+def profile_call(torch, label, fn):
+    """One call of ``fn`` under the profiler: top kernels by device time,
+    DIA kernels, host syncs and the device's busy share of the call."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    f_vjp(v)
+    fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        f_vjp(v)
+        fn()
         torch.cuda.synchronize()
     ka = prof.key_averages()
     key = "self_device_time_total" \
         if hasattr(ka[0], "self_device_time_total") else "self_cuda_time_total"
-    say("[profile] one dG^T v product, top 10 by device time:")
+    say(f"[profile] {label}, top 10 by device time:")
     say(ka.table(sort_by=key, row_limit=10, max_name_column_width=48))
     kernels = _kernel_events(prof)
     dia = [e for e in kernels if "dia_" in e.name]
     syncs = sum(1 for e in prof.events()
                 if e.name == "aten::_local_scalar_dense")
     busy_ms = sum(_event_us(e) for e in kernels) / 1e3
-    say(f"[profile] product: {len(kernels)} device kernels ({len(dia)} DIA "
+    say(f"[profile] {label}: {len(kernels)} device kernels ({len(dia)} DIA "
         f"kernels, {sum(_event_us(e) for e in dia) / 1e3:.3f} ms), host "
         f"syncs {syncs}, device busy {busy_ms:.2f} ms of {wall * 1e3:.2f} ms"
         " wall")
 
 
+def residual_iteration(torch, adjsolver, s, inputs, st):
+    """The work of one residual-form FGMRES iteration at full width, as a
+    zero-argument call: one residual vjp on the recorded graph and one
+    application of the segregated PC."""
+    state = {k: v.detach() for k, v in st.items()}
+    adj = dict(s.option["adjEqnOption"], pcType="segregated")
+    with overridden(s.option, adjEqnSolMethod="Krylov", adjEqnOption=adj):
+        pc = s.make_adjoint_pc(state, inputs)
+    _, f_vjp = adjsolver.vjp(lambda w: s._norm_residuals(w, inputs), state)
+    gen = torch.Generator(device=s.device).manual_seed(3)
+    v = {k: torch.randn(t.shape, generator=gen, device=s.device,
+                        dtype=t.dtype) for k, t in state.items()}
+    return lambda: pc(f_vjp(v))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one SIMPLE iteration and one adjoint "
-                         "product at 512x512")
+                    help="also profile one SIMPLE iteration, one adjoint "
+                         "product and one residual-form iteration at 512x512")
     args = ap.parse_args()
 
     import torch
@@ -769,7 +979,12 @@ def main():
     phase_kernels(torch, dk, fvx, s, stats, REVERSE, "k3")
     phase_functions(torch, dk, real)
     phase_golden(torch, dk, make_solver, omesh_naca0012)
-    phase_golden_adjoint(torch, dk, make_solver, omesh_naca0012)
+    gstate, gwant = phase_golden_adjoint(torch, dk, make_solver,
+                                         omesh_naca0012)
+    phase_golden_residual(torch, dk, make_solver, omesh_naca0012, gstate,
+                          gwant)
+    phase_golden_implicit(torch, dk, make_solver, omesh_naca0012, gstate,
+                          gwant)
 
     st, res1, info, dt, counts, cd = run_full(torch, dk, s, inputs, st0)
     per = {k: v[1] / ITERS for k, v in s.solve_stats.items()}
@@ -789,23 +1004,31 @@ def main():
     check(math.isfinite(cd), f"CD not finite: {cd}")
     check_counts(counts, "full width")
 
+    line_counts = phase_line_primal(torch, dk, s, inputs, st)
     adj_counts, f_vjp, psibar = phase_adjoint(torch, dk, adjsolver, s,
                                               inputs, st)
+    res_counts = phase_residual_full(torch, dk, s, inputs, st)
     phase_kernel_times(torch, dk, real, stats)
 
     if args.profile:
         phase_profile(torch, s, inputs, st)
-        phase_profile_product(torch, f_vjp, psibar)
+        profile_call(torch, "one dG^T v product", lambda: f_vjp(psibar))
+        profile_call(torch, "one residual-form iteration (residual vjp + "
+                     "segregated PC)",
+                     residual_iteration(torch, adjsolver, s, inputs, st))
 
+    paths = {"primal": counts, "primal_line_pc": line_counts,
+             "fixed_point_adjoint": adj_counts,
+             **{f"residual_adjoint_{k}": v for k, v in res_counts.items()}}
     rows = []
     for name, meta in KERNELS.items():
         st_k = stats[name]
-        launches = counts[name] if name in PRIMAL_KERNELS else \
-            adj_counts[name]
+        by_path = {p: c[name] for p, c in paths.items()}
         rows.append({"name": name, "route": "cuda",
                      "source": "dafoam_tpu_torch/csrc/dia_matvec.cu",
                      "replaces": meta["replaces"],
-                     "launches": launches,
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
                      "max_abs_err": st_k["max_abs_err"],
                      "ms": st_k["ms"], "plain_ms": st_k["plain_ms"],
                      "bound_ms": st_k["bound_ms"],

@@ -1,26 +1,39 @@
-"""Fixed-point discrete adjoint on the primal step map, and its totals.
+"""Discrete adjoint and total derivatives: the residual form and the
+fixed-point form on the primal step map.
 
-Port of the fixed-point half of ``dafoam_tpu.adjoint.solver``
-(``adjoint_solve_fp``, ``total_derivative_fp``,
-``forward_total_derivative_fp``, ``dJdW_of``). The reference is DAFoam's
-``adjEqnSolMethod: fixedPoint`` (runFPAdj, DASimpleFoam.C:189): with the
-primal's outer iteration w_{k+1} = G(w_k) the adjoint solves
+Port of ``dafoam_tpu.adjoint.solver``.
+
+Residual form (``adjoint_solve``, ``total_derivative``,
+``forward_total_derivative``; the reference's default ``adjEqnSolMethod:
+Krylov``): with the converged state W* and R(W*, x) = 0,
+
+    dR/dW^T psi = dJ/dW,    dJ/dx = pJ/px - psi^T pR/px,
+
+solved by FGMRES on the state/residual-normalized system (reference
+normalizeGradientVec/normalizeJacTVecProduct, DASolver.C:2356, :1443):
+(D_W dR/dW^T D_R^-1) psi~ = D_W dJ/dW, psi = D_R^-1 psi~.
+
+Fixed-point form (``adjoint_solve_fp``, ``total_derivative_fp``,
+``forward_total_derivative_fp``; runFPAdj, DASimpleFoam.C:189): with the
+primal's outer iteration w_{k+1} = G(w_k),
 
     (I - dG/dW^T) psibar = dJ/dW,    dJ/dx = pJ/px + psibar^T pG/px.
 
 Autograd replaces ``jax.vjp``/``jax.jvp``:
 
-- the reverse product dG^T v re-walks ONE recorded graph of G
-  (``torch.autograd.grad`` with ``retain_graph=True``), so each GMRES
-  iteration costs a backward pass and no forward;
-- the forward (tangent) product dG v runs G once per product under
-  ``torch.autograd.forward_ad``: ``torch.func.linearize`` would trace G
+- a reverse product (dR^T v, dG^T v) re-walks ONE recorded graph
+  (``torch.autograd.grad`` with ``retain_graph=True``), recorded with the
+  inputs detached, so each GMRES iteration costs a backward pass and no
+  forward;
+- a forward (tangent) product runs R or G once under
+  ``torch.autograd.forward_ad``: ``torch.func.linearize`` would trace it
   with ``make_fx``, and the DIA kernels launch through ctypes, which a
   trace cannot capture.
 
 Vectors are dicts of tensors shaped like the state (inputs-shaped for
-totals); ``scales`` (normalizeStates) turn the solve into the similarity
-transform (I - S dG^T S^-1) y = S g, psibar = y / S.
+totals); in the fixed-point form ``scales`` (normalizeStates) turn the
+solve into the similarity transform (I - S dG^T S^-1) y = S g,
+psibar = y / S.
 """
 
 from __future__ import annotations
@@ -95,6 +108,84 @@ def dJdW_of(func_fn: Callable, state, inputs):
     with torch.enable_grad():
         J = func_fn(w, inputs)
     return _grad(J, w)
+
+
+def _detached(t):
+    return tree.tmap(torch.Tensor.detach, t)
+
+
+def adjoint_solve(residual_fn: Callable, state, inputs, dJdW,
+                  state_scales: dict | None = None,
+                  res_scales: dict | None = None,
+                  precond: Callable | None = None,
+                  restart=60, rel_tol=1e-6, abs_tol=1e-14, max_iters=1000,
+                  psi0=None, deflate=0, aug0=None, return_aug=False):
+    """Solve dR/dW^T psi = dJ/dW matrix-free by FGMRES on the scaled
+    operator psi~ -> D_W dR/dW^T D_R^-1 psi~.
+
+    residual_fn: (W, inputs) -> R. A preconditioner factory marked
+    ``needs_opT`` (``precond.make_coupled_pc``) receives that operator
+    first. Returns (psi shaped like R, SolveInfo[, recycle space]); psi0
+    and psi are unscaled at the API, the recycle space lives in the
+    scaled flat space.
+    """
+    x = _detached(inputs)
+    _, f_vjp = vjp(lambda w: residual_fn(w, x), state)
+
+    def matT(psi_scaled):
+        g = f_vjp(_scale(psi_scaled, res_scales, invert=True))
+        return _scale(g, state_scales)
+
+    if precond is not None and getattr(precond, "needs_opT", False):
+        precond = precond(matT)
+    x0 = None if psi0 is None else _scale(psi0, res_scales)
+    out = gmres(matT, _scale(dJdW, state_scales), x0=x0, precond=precond,
+                restart=restart, rel_tol=rel_tol, abs_tol=abs_tol,
+                max_iters=max_iters, deflate=deflate, aug0=aug0,
+                return_aug=return_aug)
+    return (_scale(out[0], res_scales, invert=True), *out[1:])
+
+
+def total_derivative(residual_fn: Callable, func_fn: Callable, state,
+                     inputs, psi):
+    """dJ/dx = pJ/px - psi^T pR/px for every leaf of ``inputs`` (reference
+    calcJacTVecProduct, DASolver.C:1690)."""
+    w = _detached(state)
+    x = _requiring_grad(inputs)
+    with torch.enable_grad():
+        J = func_fn(w, x)
+    pJpx = _grad(J, x)
+    _, fx_vjp = vjp(lambda xx: residual_fn(w, xx), inputs)
+    return tree.tmap(torch.sub, pJpx, fx_vjp(psi))
+
+
+def forward_total_derivative(residual_fn: Callable, func_fn: Callable,
+                             state, inputs, dx, restart=60, rel_tol=1e-10,
+                             max_iters=2000, precond: Callable | None = None,
+                             state_scales: dict | None = None,
+                             res_scales: dict | None = None):
+    """Forward-mode total derivative (the reference's ADF cross-check):
+    dW = -(dR/dW)^-1 (pR/px dx), dJ = pJ/pW dW + pJ/px dx.
+
+    The tangent system is solved in the adjoint's normalized metric,
+    (D_R^-1 dR/dW D_W) y = D_R^-1 b, dW = D_W y; otherwise the two AD
+    directions converge in different metrics and their totals disagree at
+    the scale-imbalance level. Each GMRES product runs R once in forward
+    mode."""
+    _, b = jvp(lambda x: residual_fn(state, x), inputs, dx)
+
+    def mat(v):
+        _, jv = jvp(lambda w: residual_fn(w, inputs), state,
+                    _scale(v, state_scales))
+        return _scale(jv, res_scales, invert=True)
+
+    y_neg, info = gmres(mat, _scale(b, res_scales, invert=True),
+                        restart=restart, rel_tol=rel_tol,
+                        max_iters=max_iters, precond=precond)
+    dW = tree.tmap(torch.neg, _scale(y_neg, state_scales))
+    _, dJ_w = jvp(lambda w: func_fn(w, inputs), state, dW)
+    _, dJ_x = jvp(lambda x: func_fn(state, x), inputs, dx)
+    return dJ_w + dJ_x, info
 
 
 def adjoint_solve_fp(step_fn: Callable, state, inputs, dJdW,

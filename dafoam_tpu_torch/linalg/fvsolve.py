@@ -1,12 +1,14 @@
 """Solve one FvMatrix equation (the primal's segregated sub-solves).
 
-Port of ``dafoam_tpu.linalg.fvsolve.solve`` with the Jacobi
-preconditioner: symmetric systems (pressure) go to CG, asymmetric ones
-(momentum, turbulence) to BiCGStab, both preconditioned with the inverse
-diagonal. The solve is in correction form, x = x0 + A^-1 (b - A x0), with
-the inner Krylov solve started from zero and its tolerance relative to
-||b - A x0|| — the same iterates as the JAX package's
-``custom_linear_solve`` wrapper.
+Port of ``dafoam_tpu.linalg.fvsolve``: symmetric systems (pressure) go to
+CG, asymmetric ones (momentum, turbulence) to BiCGStab, preconditioned with
+the inverse diagonal or (``pc="line"``) with ADI line solves. The solve is
+in correction form, x = x0 + A^-1 (b - A x0), with the inner Krylov solve
+started from zero and its tolerance relative to ||b - A x0||.
+
+``solve`` is differentiable through ``_LinearSolve``, the torch
+counterpart of the JAX package's ``lax.custom_linear_solve``: reverse mode
+by a tight transpose solve, forward mode by one more forward solve.
 
 Vector equations on a banded mesh run TRANSPOSED, component-major (C, nc),
 so every momentum matvec is one K2 launch over all three components.
@@ -24,7 +26,12 @@ import torch
 
 from dafoam_tpu_torch.linalg.krylov import (SolveInfo, bicgstab, cg,
                                             chebyshev_steps, jacobi_steps)
-from dafoam_tpu_torch.ops.fvmatrix import FvMatrix, matvec, matvec_fn
+from dafoam_tpu_torch.linalg.lines import (apply_line_solve,
+                                           build_line_solves,
+                                           cell_major_matvec,
+                                           line_directions, line_solver)
+from dafoam_tpu_torch.ops.fvmatrix import (FvMatrix, matvec, matvec_fn,
+                                           matvec_t_fn)
 from dafoam_tpu_torch.utils.precision import guard_tiny
 
 
@@ -54,46 +61,163 @@ def fixed_inner(scale: float = 1.0, smoother: str = "linear"):
         _FIXED_INNER.pop()
 
 
+class _Plan:
+    """What one implicit solve needs besides its tensor inputs: the frozen
+    matrix, its forward and transposed DIA products, the preconditioners,
+    the Krylov method and its tolerances. ``info`` holds the forward
+    solve's SolveInfo."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+        self.info = None
+
+    def forward_solve(self, rhs):
+        return self.solver(self.mv, rhs, precond=self.prec,
+                           rel_tol=self.rel_tol, abs_tol=self.abs_tol,
+                           max_iters=self.max_iters)
+
+    def matrix_product(self, diag, lower, upper, x):
+        """(diag, lower, upper) applied to x in the solve's layout."""
+        mm = self.m._replace(diag=diag, lower=lower, upper=upper)
+        return matvec_fn(mm, self.topo, component_major=self.cm)(x)
+
+
+class _LinearSolve(torch.autograd.Function):
+    """delta = A^-1 r for A = (diag, lower, upper): the rules of
+    ``lax.custom_linear_solve`` in ``dafoam_tpu.linalg.fvsolve.solve``.
+
+    - forward: the Krylov solve from zero, tolerance relative to ||r||;
+    - backward: lambda = A^-T delta_bar by a TIGHT transpose solve (see
+      ``solve``; transposed products through K3a, or the forward product
+      for a symmetric matrix, as JAX's ``symmetric`` does); r_bar = lambda
+      and the matrix cotangent -lambda (x) delta, which the banded
+      matvec's reverse rule (K3b) forms;
+    - jvp: delta_dot = A^-1 (r_dot - A_dot delta), one more forward solve
+      (JAX's tangent solve uses the forward tolerance too).
+
+    A loose transpose solve would leak into the fixed-point adjoint's
+    totals (JAX measured pRelTol 0.05 -> 2.5e-3 gradient error).
+    """
+
+    @staticmethod
+    def forward(diag, lower, upper, r, plan):
+        delta, plan.info = plan.forward_solve(r)
+        return delta
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.plan = inputs[4]
+        ctx.save_for_backward(output)
+        ctx.save_for_forward(output)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (delta,) = ctx.saved_tensors
+        plan = ctx.plan
+        lam, _ = plan.solver(plan.mv_t, ct.contiguous(),
+                             precond=plan.prec_t, rel_tol=plan.trans_rel_tol,
+                             abs_tol=plan.abs_tol,
+                             max_iters=plan.trans_max_iters)
+        need = ctx.needs_input_grad[:3]
+        grads = [None, None, None]
+        if any(need):
+            m = plan.m
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(n) for t, n in
+                          zip((m.diag, m.lower, m.upper), need)]
+                y = plan.matrix_product(*leaves, delta)
+                wanted = [t for t in leaves if t.requires_grad]
+                got = iter(torch.autograd.grad(y, wanted, -lam,
+                                               allow_unused=True))
+            grads = [next(got) if n else None for n in need]
+        return (*grads, lam, None)
+
+    @staticmethod
+    def jvp(ctx, ddiag, dlower, dupper, dr, _):
+        (delta,) = ctx.saved_tensors
+        plan = ctx.plan
+        rhs = torch.zeros_like(delta) if dr is None else dr
+        if ddiag is not None or dlower is not None or dupper is not None:
+            m = plan.m
+            tang = [torch.zeros_like(p) if t is None else t for t, p in
+                    zip((ddiag, dlower, dupper), (m.diag, m.lower, m.upper))]
+            rhs = rhs - plan.matrix_product(*tang, delta)
+        out, _ = plan.forward_solve(rhs.contiguous())
+        return out
+
+
 def solve(m: FvMatrix, psi0, topo, symmetric=False, rel_tol=1e-7,
           abs_tol=1e-50, max_iters=500, rhs=None, pc: str = "jacobi"):
     """Solve M x = source (+rhs) starting from psi0. Returns (x, SolveInfo)
     of the inner correction solve (inside ``fixed_inner``: of the fixed
-    smoother, with iters = its sweep budget)."""
+    smoother, with iters = its sweep budget).
+
+    Differentiable in M and rhs in both AD modes through the implicit
+    rule of ``_LinearSolve`` (``fpInnerMode: implicit`` differentiates the
+    primal step through it). The warm start stays outside the rule, in
+    correction form x = x0 + A^-1 (b - A x0) with x0 detached and the
+    defect b - A x0 on the live matrix: d x = A^-1 (db - dA x).
+
+    pc="line" (primalLinearSolver.pPC) preconditions with the ADI line
+    solves of ``linalg/lines.py`` and switches to BiCGStab (the sweep is
+    nonsymmetric); without line directions it falls back to Jacobi.
+    Transpose solves run to rel min(rel_tol, 1e-10) within max(max_iters,
+    1000) iterations.
+    """
     if _FIXED_INNER:
         scale, smoother = _FIXED_INNER[-1]
         n = max(1, int(round(scale * max_iters)))
         x = solve_fixed(m, psi0, topo, symmetric=symmetric, n_iters=n,
                         rhs=rhs, smoother=smoother)
         return x, SolveInfo(n, 0.0, 0.0, True)
-    if pc != "jacobi":
+    if pc not in ("jacobi", "line"):
         raise NotImplementedError(
-            f"pc={pc!r} is not ported yet: the primal's line and "
-            "multigrid preconditioners (linalg/lines.py, mg.mg_solver) "
-            "come with the residual-form adjoint (ROADMAP.md queue 1, P3)")
+            f"pc={pc!r} is not ported yet: the primal's multigrid "
+            "preconditioner (mg.mg_solver) is ROADMAP.md queue 1")
     b = m.source if rhs is None else m.source + rhs
     cm = _component_major_ok(m, psi0, topo)
     if cm:
         b = b.t().contiguous()
         # contiguous: the Krylov vectors inherit the layout of dinv
         d = m.diag[None, :] if m.diag.ndim == 1 else m.diag.t().contiguous()
-        x0 = psi0.t().contiguous()
+        x0 = psi0.detach().t().contiguous()
     else:
         d = m.diag if m.diag.ndim == psi0.ndim else m.diag[..., None]
-        x0 = psi0
+        x0 = psi0.detach()
+    mf = m._replace(diag=m.diag.detach(), lower=m.lower.detach(),
+                    upper=m.upper.detach(), source=m.source.detach())
+    d = d.detach()
     td = guard_tiny(d.dtype)
     dinv = 1.0 / torch.where(torch.abs(d) > td, d, 1.0)
-    mv = matvec_fn(m, topo, component_major=cm)
+    mv = matvec_fn(mf, topo, component_major=cm)
+    mv_t = mv if symmetric else matvec_t_fn(mf, topo, component_major=cm)
 
     def prec(r):
         return dinv * r
 
+    prec_t = prec
     solver = cg if symmetric else bicgstab
-    delta, info = solver(mv, b - mv(x0), precond=prec, rel_tol=rel_tol,
-                         abs_tol=abs_tol, max_iters=max_iters)
+    if pc == "line" and line_directions(topo):
+        # the line PC works cell-major; wrap it for component-major solves
+        from dafoam_tpu_torch.adjoint.precond import transpose
+        lp = line_solver(mf, topo)
+        lpt = line_solver(transpose(mf), topo,
+                          matvec=cell_major_matvec(mf, topo, matvec_t_fn))
+        prec = (lambda r: lp(r.t()).t().contiguous()) if cm else lp
+        prec_t = (lambda r: lpt(r.t()).t().contiguous()) if cm else lpt
+        solver = bicgstab
+
+    plan = _Plan(m=mf, topo=topo, cm=cm, mv=mv, mv_t=mv_t, prec=prec,
+                 prec_t=prec_t, solver=solver, rel_tol=rel_tol,
+                 abs_tol=abs_tol, max_iters=max_iters,
+                 trans_rel_tol=min(rel_tol, 1e-10),
+                 trans_max_iters=max(max_iters, 1000))
+    r = b - matvec_fn(m, topo, component_major=cm)(x0)   # live defect
+    delta = _LinearSolve.apply(m.diag, m.lower, m.upper, r, plan)
     x = x0 + delta
     if cm:
         x = x.t()
-    return x, info
+    return x, plan.info
 
 
 def solve_fixed(m: FvMatrix, psi0, topo, symmetric=False, n_iters=20,
@@ -113,7 +237,7 @@ def solve_fixed(m: FvMatrix, psi0, topo, symmetric=False, n_iters=20,
     smoother="mg": geometric-multigrid defect correction (``linalg/mg.py``)
     for scalar equations on a grid-form mesh, else falls through to
     "line": ADI line solves for scalar equations on a dense-DIA layout
-    with line directions (not ported yet: raises), else to "linear":
+    with line directions (``_LineSweep``), else to "linear":
     Chebyshev on the Jacobi-preconditioned operator for symmetric
     equations, damped Jacobi otherwise. smoother="krylov" (the frozen
     CG/BiCGStab step scans) is not ported yet and raises.
@@ -149,11 +273,19 @@ def solve_fixed(m: FvMatrix, psi0, topo, symmetric=False, n_iters=20,
         smoother = "line"  # no grid form: fall through to ADI lines
 
     if smoother == "line":
-        from dafoam_tpu_torch.linalg.lines import line_directions
+        # scalar equations only (the pressure, where the stiffness lives);
+        # relaxed momentum is diagonally dominant and damped Jacobi
+        # contracts it
         if x0.ndim == 1 and line_directions(topo):
-            raise NotImplementedError(
-                "fpInnerSmoother 'line' (ADI line solves) is not ported yet "
-                "(ROADMAP.md queue 1: linalg/lines.py)")
+            lp = _line_sweep(msg, topo)
+            # one ADI sweep ~ a dozen matvec-equivalents; budget sweeps
+            # against the requested smoother-iteration count
+            sweeps = max(1, min(4, int(round(n_iters / 10))))
+            r = b - mv(x0)           # live defect
+            c = lp(r)
+            for _ in range(sweeps - 1):
+                c = c + lp(r - mv_f(c))
+            return x0 + c
         smoother = "linear"  # vector eq / no dense-DIA layout: fall back
 
     if smoother != "linear":
@@ -176,6 +308,62 @@ def solve_fixed(m: FvMatrix, psi0, topo, symmetric=False, n_iters=20,
     else:
         x = x0 + jacobi_steps(mv, dinv, r0, n_steps=int(n_iters))
     return x.t() if cm else x
+
+
+class _LineSweep(torch.autograd.Function):
+    """c = L r, one defect-correction ADI composition of a frozen matrix
+    M over its line directions,
+
+        L_1 = S_1,  L_n = S_n + (I - S_n M) L_{n-1}
+
+    (S_k the exact solve of direction k's tridiagonal restriction), with
+    its ALGORITHMIC transpose as the backward rule: the same algorithm on
+    M^T with the direction order reversed (by induction on n), each
+    tridiagonal solved by the same forward PCR. Autograd through the PCR
+    recurrences is numerically unstable: JAX measured 30% vjp differences
+    between op orderings on the stretched NACA O-mesh in f64. L is linear
+    in r, so the jvp is L applied to the tangent."""
+
+    @staticmethod
+    def forward(r, fwd, bwd):
+        return fwd(r)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fwd, ctx.bwd = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.bwd(ct.contiguous()), None, None
+
+    @staticmethod
+    def jvp(ctx, dr, _f, _b):
+        return ctx.fwd(dr.contiguous())
+
+
+def _line_sweep(msg: FvMatrix, topo):
+    """r -> L r of ``_LineSweep`` for the frozen scalar matrix ``msg``:
+    forward defects through K1, transposed ones through K3a."""
+    sv = build_line_solves(msg, topo)
+    from dafoam_tpu_torch.adjoint.precond import transpose
+    sv_t = build_line_solves(transpose(msg), topo)
+    mv1 = matvec_fn(msg, topo)
+    mv2 = matvec_t_fn(msg, topo)
+    diag = msg.diag
+
+    def fwd(rr):
+        z = apply_line_solve(sv[0], diag, rr)
+        for e in sv[1:]:
+            z = z + apply_line_solve(e, diag, rr - mv1(z))
+        return z
+
+    def bwd(ct):
+        z = apply_line_solve(sv_t[-1], diag, ct)
+        for e in reversed(sv_t[:-1]):
+            z = z + apply_line_solve(e, diag, ct - mv2(z))
+        return z
+
+    return lambda r: _LineSweep.apply(r, fwd, bwd)
 
 
 def initial_residual_norm(m: FvMatrix, psi, topo, rhs=None):

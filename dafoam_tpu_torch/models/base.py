@@ -8,6 +8,8 @@ Each model provides:
   divdevreff(U, ...)              the momentum-equation stress term
                                   -div(nuEff grad U) - div(nuEff dev2(gradU^T))
   correct(...)                    one primal update of the model states
+  residuals(...), pc_matrices(...) the model rows of the adjoint's residual
+                                  and their block-PC operators
 """
 
 from __future__ import annotations
@@ -103,6 +105,14 @@ class TurbulenceModel:
     # -- model transport ----------------------------------------------
     def equations(self, state, inputs, geom, phi, gradU, relax) -> dict:
         """{model state: relaxed transport FvMatrix} at ``state``."""
+        return {}
+
+    def residuals(self, state, inputs, geom, phi, gradU=None) -> dict:
+        """{model state: its residual (per volume)} at ``state``."""
+        return {}
+
+    def pc_matrices(self, state, inputs, geom, phi, gradU) -> dict:
+        """{model state: (FvMatrix, symmetric)} for the adjoint block PC."""
         return {}
 
     def correct(self, state, inputs, geom, phi, **kw):

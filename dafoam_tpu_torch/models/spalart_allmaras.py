@@ -115,6 +115,16 @@ class SpalartAllmaras(TurbulenceModel):
         M = M.add_source((cross + prod) * geom.vol)
         return M + fvm.Sp(geom, topo, CW1 * fw * nuTilda / d ** 2, nuTilda)
 
+    def pc_matrices(self, state, inputs, geom, phi, gradU):
+        return {"nuTilda": (self._assemble(state, inputs, geom, phi, gradU),
+                            False)}
+
+    def residuals(self, state, inputs, geom, phi, gradU=None):
+        if gradU is None:
+            raise ValueError("SA residuals need gradU")
+        M = self._assemble(state, inputs, geom, phi, gradU)
+        return {"nuTilda": fvx.residual(M, state["nuTilda"], geom, self.topo)}
+
     # ------------------------------------------------------------------
     def equations(self, state, inputs, geom, phi, gradU, relax):
         """{"nuTilda": the relaxed transport matrix} at ``state``."""

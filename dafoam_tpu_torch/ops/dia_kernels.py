@@ -103,23 +103,6 @@ def dia_matvec_multi_plain(diag, coef, offsets, x):
     return _banded(diag, coef, tuple(offsets), x)
 
 
-def transpose_coef(coef, offsets):
-    """Band rows of Aᵀ given A's: row k of Aᵀ at offset -o_k is
-    C'_k[j] = C_k[j - o_k], zero where j - o_k falls outside [0, n)."""
-    n = coef.shape[-1]
-    rows = []
-    for k, o in enumerate(offsets):
-        row = coef[k]
-        if abs(o) >= n:
-            row = torch.zeros_like(row)
-        elif o > 0:
-            row = F.pad(row[:n - o], (o, 0))
-        elif o < 0:
-            row = F.pad(row[-o:], (0, -o))
-        rows.append(row)
-    return torch.stack(rows) if rows else coef
-
-
 def _csum(p):
     """Sum over the leading (component) axis in the order 0..C-1."""
     acc = p[0]
@@ -137,20 +120,33 @@ def _shifted(x, offsets):
     return [xp[..., lo + o:lo + o + n] for o in offsets]
 
 
+def _banded_t(diag, coef, offsets, ct):
+    """Aᵀ ct = diag*ct + sum_k shift(coef[k] ⊙ ct, -o_k): row j adds
+    c[k, j - o_k] ct[j - o_k] in the order k = 0..K-1, zero outside
+    [0, n): the products and sums of ``_banded`` on the bands of Aᵀ
+    (C'_k[j] = C_k[j - o_k] at offsets -o_k), without building them."""
+    n = ct.shape[-1]
+    y = diag * ct
+    if not offsets:
+        return y
+    lo = max(0, max(offsets))
+    hi = max(0, -min(offsets))
+    pp = F.pad(coef * ct[..., None, :], (lo, hi))
+    for k, o in enumerate(offsets):
+        y = y + pp[..., k, lo - o:lo - o + n]
+    return y
+
+
 def dia_matvec_t_plain(diag, coef, offsets, ct):
-    """Plain torch K3a, scalar: Aᵀ ct through ``transpose_coef``."""
+    """Plain torch K3a, scalar: Aᵀ ct from A's own bands."""
     COUNTS["dia_matvec_t_plain"] += 1
-    offsets = tuple(offsets)
-    return _banded(diag, transpose_coef(coef, offsets),
-                   tuple(-o for o in offsets), ct)
+    return _banded_t(diag, coef, tuple(offsets), ct)
 
 
 def dia_matvec_multi_t_plain(diag, coef, offsets, ct):
     """Plain torch K3a, component-major: ct (C, n), diag (n,) or (C, n)."""
     COUNTS["dia_matvec_multi_t_plain"] += 1
-    offsets = tuple(offsets)
-    return _banded(diag, transpose_coef(coef, offsets),
-                   tuple(-o for o in offsets), ct)
+    return _banded_t(diag, coef, tuple(offsets), ct)
 
 
 def dia_cotangent_plain(ct, x, offsets):

@@ -174,6 +174,38 @@ def matvec_fn(m: FvMatrix, topo, component_major: bool = False):
     return mv
 
 
+def matvec_t_fn(m: FvMatrix, topo, component_major: bool = False):
+    """Return a closure x -> M^T x (volume-integrated) with the band
+    coefficients precomputed.
+
+    On the banded mesh each application is one K3a launch
+    (``dia_matvec_t``, or ``dia_matvec_multi_t`` over component-major
+    (C, n) operands) that reads M's OWN bands at the shifted rows, so no
+    transposed band array is built. The closure is not differentiable: it
+    serves the adjoint's preconditioners and the transpose solves of the
+    implicit ``fvsolve.solve`` rule, whose matrices are frozen. Falls back
+    to the face-based product of the LDU transpose when the mesh is not
+    banded (cell-major only).
+    """
+    bands = dia_bands(m, topo)
+    if bands is None:
+        if component_major:
+            raise ValueError("component-major matvec needs a banded mesh")
+        mt = FvMatrix(m.diag, m.upper, m.lower, m.source)
+        return lambda x: matvec(mt, x, topo)
+    offsets, coef = bands
+    coef = coef.detach().contiguous()
+    d0 = m.diag.detach()
+    if component_major:
+        dT = d0.t().contiguous() if d0.ndim == 2 else d0.contiguous()
+        return lambda x: dia_kernels.dia_matvec_multi_t(dT, coef, offsets, x)
+    if d0.ndim != 1:
+        raise ValueError("cell-major banded matvec needs a scalar diagonal; "
+                         "vector equations run component-major")
+    d0 = d0.contiguous()
+    return lambda x: dia_kernels.dia_matvec_t(d0, coef, offsets, x)
+
+
 def residual(m: FvMatrix, psi: torch.Tensor, geom, topo) -> torch.Tensor:
     """(A psi - b)/V — OpenFOAM ``M & psi`` semantics."""
     r = matvec(m, psi, topo) - _match_rank(m.source, psi)

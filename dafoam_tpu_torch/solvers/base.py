@@ -7,16 +7,19 @@ mesh, primal loop control and failure handling. Here:
   of tensors on the solver's device;
 - ``solve_primal`` is a Python loop over device work, run under
   ``torch.no_grad()`` by ``run_primal``;
+- ``residuals`` (one function per concrete solver) and
+  ``_norm_residuals``, the normalizeResiduals scaling of the reference
+  (src/include/DAMacroFunctions.H:28-50);
 - ``solve_adjoint`` / ``total_derivative`` / ``forward_total_derivative``:
-  the fixed-point adjoint of the primal step map (``adjoint/solver.py``)
-  with the state normalization of the reference (normalizeStates,
+  the residual-form adjoint dR/dW^T psi = dJ/dW (``adjEqnSolMethod:
+  Krylov``, FGMRES with the block PCs of ``adjoint/precond.py``) or the
+  fixed-point adjoint of the primal step map (``fixedPoint``), both with
+  the state normalization of the reference (normalizeStates,
   DASolver.C:2356);
 - primal failure detection (NaN/blow-up -> invalid state; reference
   DASolver::validateStates / checkPrimalFailure, DASolver.C:3787).
 
-The residual-form (Krylov) adjoint and ``fpInnerMode: implicit`` raise
-with their ROADMAP item; the JAX package's ``jitMode`` has no counterpart
-(PyTorch runs eagerly).
+The JAX package's ``jitMode`` has no counterpart (PyTorch runs eagerly).
 """
 
 from __future__ import annotations
@@ -39,12 +42,6 @@ _PARAMETRIC_BC_TYPES = (
     "multiFreqScalar", "multiFreqVector", "varyingVelocity",
     "varyingVelocityInletOutlet", "homTemp", "wallHeatFluxTransfer",
     "fixedWallHeatFlux")
-
-_RESIDUAL_ADJOINT = (
-    "the residual-form (Krylov) adjoint is not ported yet: use "
-    "adjEqnSolMethod fixedPoint (ROADMAP.md queue 1: adjoint/precond.py, "
-    "adjoint_solve, fvsolve.solve as an autograd.Function)")
-
 
 class PrimalInfo(NamedTuple):
     iters: int
@@ -109,6 +106,9 @@ class DASolverBase:
     # ------------------------------------------------------------------
     # abstract interface
     # ------------------------------------------------------------------
+    def residuals(self, state: dict, inputs: dict) -> dict:
+        raise NotImplementedError
+
     def solve_primal(self, state: dict, inputs: dict):
         raise NotImplementedError
 
@@ -119,6 +119,30 @@ class DASolverBase:
                 st[name] = torch.broadcast_to(
                     self._tensor(val), st[name].shape).clone()
         return st
+
+    # ------------------------------------------------------------------
+    # residual post-scaling (normalizeResiduals semantics, reference
+    # src/include/DAMacroFunctions.H:28-50)
+    # ------------------------------------------------------------------
+    def _apply_res_norm(self, res: dict, geom) -> dict:
+        """Listed residuals stay per volume (phi: per face area, with a
+        neutral 1 on the zero-area padded faces of the dense layout, whose
+        R_phi row is the identity -phi); the others are volume-integrated."""
+        listed = set(self.option["normalizeResiduals"])
+        out = {}
+        for k, v in res.items():
+            if k == "phi":
+                out[k] = v / torch.where(geom.magsf > 0.0, geom.magsf, 1.0) \
+                    if "phiRes" in listed else v
+            elif k + "Res" in listed:
+                out[k] = v
+            else:
+                out[k] = v * (geom.vol if v.ndim == 1 else geom.vol[:, None])
+        return out
+
+    def _norm_residuals(self, state, inputs):
+        geom = self.geometry(inputs)
+        return self._apply_res_norm(self.residuals(state, inputs), geom)
 
     # ------------------------------------------------------------------
     # functions
@@ -150,7 +174,7 @@ class DASolverBase:
             return self.eval_function(name, state, inputs)
 
     # ------------------------------------------------------------------
-    # adjoint + totals (fixed-point mode)
+    # adjoint + totals
     # ------------------------------------------------------------------
     def state_scales(self, geom) -> dict:
         """normalizeStates per state; phi scales by the face area, with a
@@ -167,16 +191,30 @@ class DASolverBase:
                 out[name] = self._tensor(s)
         return out
 
+    def make_adjoint_pc(self, state, inputs):
+        """Override: the residual-form adjoint's GMRES preconditioner (or
+        None)."""
+        return None
+
+    def make_forward_pc(self, state, inputs):
+        """Override: PC for the FORWARD linearized system dR/dW (used by
+        forward_total_derivative); None = unpreconditioned."""
+        return None
+
     def _fp_adjoint(self) -> bool:
-        """True when the fixed-point adjoint is selected (this solver has
-        the step map it needs); the residual-form adjoint raises."""
+        """True when the fixed-point adjoint is selected (and this solver
+        has the step map it needs); False for the residual form."""
         if self.option["adjEqnSolMethod"] != "fixedPoint":
-            raise NotImplementedError(_RESIDUAL_ADJOINT)
+            return False
         if not hasattr(self, "primal_step"):
             raise NotImplementedError(
                 f"{type(self).__name__} has no primal_step; "
                 "adjEqnSolMethod fixedPoint is unavailable")
         return True
+
+    def _scales(self, inputs):
+        with torch.no_grad():
+            return self.state_scales(self.geometry(inputs))
 
     def _fp_step_fn(self):
         """The differentiable step map of the fixed-point adjoint: one
@@ -188,10 +226,10 @@ class DASolverBase:
         changes rAU and is refused (fpRelaxEquations)."""
         opt = self.option["adjEqnOption"]
         if opt.get("fpInnerMode", "fixed") == "implicit":
-            raise NotImplementedError(
-                "fpInnerMode 'implicit' is not ported yet: it needs "
-                "fvsolve.solve as an autograd.Function with tight transpose "
-                "solves (ROADMAP.md queue 1)")
+            # every inner solve keeps its Krylov solve and is differentiated
+            # by the implicit rule (fvsolve._LinearSolve: tight transpose
+            # solves, ~10x the cost of a fixed-mode product)
+            return lambda w, x: self.primal_step(w, x)
         scale = float(opt.get("fpInnerScale", 1.0))
         smoother = str(opt.get("fpInnerSmoother", "linear"))
         rf_f = dict(opt.get("fpRelaxFields", {}) or {})
@@ -225,59 +263,88 @@ class DASolverBase:
     def _fp_scales(self, inputs):
         if not self.option["adjEqnOption"].get("fpNormalize", True):
             return None
-        with torch.no_grad():
-            return self.state_scales(self.geometry(inputs))
+        return self._scales(inputs)
 
-    def solve_adjoint_rhs(self, state, inputs, dJdW, psi0=None, aug0=None,
-                          return_aug=False):
+    def solve_adjoint_rhs(self, state, inputs, dJdW, psi0=None,
+                          precond=None, aug0=None, return_aug=False):
         """Solve the adjoint for a caller-supplied right-hand side pytree
-        (the MPhys ``solve_linear`` contract). Fixed-point mode returns
-        psibar (step-map convention); pair it with total_derivative."""
-        self._fp_adjoint()
+        (the MPhys ``solve_linear`` contract). Residual form: psi of
+        dR/dW^T psi = dJdW by FGMRES with the pcType preconditioner, built
+        here unless ``precond`` is given. Fixed-point mode returns psibar
+        (step-map convention); pair either with total_derivative."""
         opt = self.option["adjEqnOption"]
-        return adjsolver.adjoint_solve_fp(
-            self._fp_step_fn(), state, inputs, dJdW,
-            rel_tol=opt.get("fpRelTol", 1e-6),
-            abs_tol=opt["gmresAbsTol"],
-            max_iters=opt.get("fpMaxIters", 1000),
-            relax=opt.get("fpRelaxation", 1.0),
-            accel=opt.get("fpAcceleration", "gmres"),
-            restart=opt["gmresRestart"], psi0=psi0,
-            deflate=int(opt.get("gmresDeflate", 0)),
-            scales=self._fp_scales(inputs),
-            aug0=aug0, return_aug=return_aug,
-            remat=bool(opt.get("fpRemat", False)))
+        if self._fp_adjoint():
+            # pcType only configures forward_total_derivative's PC here
+            return adjsolver.adjoint_solve_fp(
+                self._fp_step_fn(), state, inputs, dJdW,
+                rel_tol=opt.get("fpRelTol", 1e-6),
+                abs_tol=opt["gmresAbsTol"],
+                max_iters=opt.get("fpMaxIters", 1000),
+                relax=opt.get("fpRelaxation", 1.0),
+                accel=opt.get("fpAcceleration", "gmres"),
+                restart=opt["gmresRestart"], psi0=psi0,
+                deflate=int(opt.get("gmresDeflate", 0)),
+                scales=self._fp_scales(inputs),
+                aug0=aug0, return_aug=return_aug,
+                remat=bool(opt.get("fpRemat", False)))
+        if precond is None and opt.get("pcType", "none") != "none":
+            precond = self.make_adjoint_pc(state, inputs)
+        scales = self._scales(inputs)
+        return adjsolver.adjoint_solve(
+            self._norm_residuals, state, inputs, dJdW,
+            state_scales=scales, res_scales=scales, precond=precond,
+            restart=opt["gmresRestart"], rel_tol=opt["gmresRelTol"],
+            abs_tol=opt["gmresAbsTol"], max_iters=opt["gmresMaxIters"],
+            psi0=psi0, deflate=int(opt.get("gmresDeflate", 0)),
+            aug0=aug0, return_aug=return_aug)
 
-    def solve_adjoint(self, state, inputs, func_name, psi0=None, aug0=None,
-                      return_aug=False):
+    def solve_adjoint(self, state, inputs, func_name, psi0=None,
+                      precond=None, aug0=None, return_aug=False):
         dJdW = adjsolver.dJdW_of(
             lambda w, x: self.eval_function(func_name, w, x), state, inputs)
         return self.solve_adjoint_rhs(state, inputs, dJdW, psi0=psi0,
-                                      aug0=aug0, return_aug=return_aug)
+                                      precond=precond, aug0=aug0,
+                                      return_aug=return_aug)
 
     def total_derivative(self, state, inputs, func_name, psi):
-        """dJ/dx for every leaf of ``inputs`` from the adjoint vector."""
-        self._fp_adjoint()
-        return adjsolver.total_derivative_fp(
-            self._fp_step_fn(),
-            lambda w, x: self.eval_function(func_name, w, x),
-            state, inputs, psi)
+        """dJ/dx for every leaf of ``inputs`` from the adjoint vector (psi
+        of the residual form, psibar of the fixed-point form)."""
+        func = lambda w, x: self.eval_function(func_name, w, x)  # noqa: E731
+        if self._fp_adjoint():
+            return adjsolver.total_derivative_fp(
+                self._fp_step_fn(), func, state, inputs, psi)
+        return adjsolver.total_derivative(self._norm_residuals, func, state,
+                                          inputs, psi)
 
     def forward_total_derivative(self, state, inputs, func_name, dx):
         """dJ = dJ/dx . dx by the tangent twin of the adjoint (the
-        reference's forward-mode cross-check)."""
-        self._fp_adjoint()
+        reference's forward-mode cross-check), in the SAME normalized
+        metric as the adjoint (reference normalizeJacTVecProduct,
+        DASolver.C:1443)."""
         opt = self.option["adjEqnOption"]
-        return adjsolver.forward_total_derivative_fp(
-            self._fp_step_fn(),
-            lambda w, x: self.eval_function(func_name, w, x),
-            state, inputs, dx,
-            rel_tol=opt.get("fpRelTol", 1e-6),
-            abs_tol=opt["gmresAbsTol"],
-            max_iters=opt.get("fpMaxIters", 1000),
-            restart=opt["gmresRestart"],
-            deflate=int(opt.get("gmresDeflate", 0)),
-            scales=self._fp_scales(inputs))
+        func = lambda w, x: self.eval_function(func_name, w, x)  # noqa: E731
+        if self._fp_adjoint():
+            return adjsolver.forward_total_derivative_fp(
+                self._fp_step_fn(), func, state, inputs, dx,
+                rel_tol=opt.get("fpRelTol", 1e-6),
+                abs_tol=opt["gmresAbsTol"],
+                max_iters=opt.get("fpMaxIters", 1000),
+                restart=opt["gmresRestart"],
+                deflate=int(opt.get("gmresDeflate", 0)),
+                scales=self._fp_scales(inputs))
+        scales = self._scales(inputs)
+        precond = None
+        if opt.get("pcType", "none") != "none":
+            pc_raw = self.make_forward_pc(state, inputs)
+            if pc_raw is not None:
+                def precond(r):  # D_W^-1 o pc_raw o D_R adapter
+                    y = pc_raw(adjsolver._scale(r, scales))
+                    return adjsolver._scale(y, scales, invert=True)
+        return adjsolver.forward_total_derivative(
+            self._norm_residuals, func, state, inputs, dx,
+            restart=opt.get("gmresRestart", 60),
+            max_iters=opt.get("gmresMaxIters", 2000),
+            precond=precond, state_scales=scales, res_scales=scales)
 
     def run_adjoint(self, func_name, state, inputs):
         return self.solve_adjoint(state, inputs, func_name)

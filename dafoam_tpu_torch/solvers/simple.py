@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dafoam_tpu_torch.adjoint.precond import build_forward_pc, build_pc
 from dafoam_tpu_torch.linalg import fvsolve
 from dafoam_tpu_torch.mesh.geometry import compute_geometry
 from dafoam_tpu_torch.mesh.walldist import compute_wall_distance
@@ -111,12 +112,15 @@ class DASimpleFoam(DASolverBase):
     # ------------------------------------------------------------------
     # shared assembly: momentum eqn + pressure projection pieces
     # ------------------------------------------------------------------
-    def _ueqn(self, state, inputs, geom):
+    def _ueqn(self, state, inputs, geom, is_pc=False):
+        """The relaxed momentum matrix (the adjoint PC's copy always uses
+        upwind convection)."""
         U, phi = state["U"], state["phi"]
         if inputs["params"].get("alphaPorosity") is not None:
             raise _not_ported("alphaPorosity", "P8")
         U_bco = self._bco_U(U, inputs, geom, phi)
-        M = fvm.div(geom, self.topo, phi, U, U_bco, scheme=self.div_u_scheme,
+        scheme = "upwind" if is_pc else self.div_u_scheme
+        M = fvm.div(geom, self.topo, phi, U, U_bco, scheme=scheme,
                     bounded=True) \
             + self.turb.divdevreff(U, state, inputs, geom, U_bco)
         alpha = self.option["relaxationFactors"]["equations"].get("U", 0.7)
@@ -166,6 +170,66 @@ class DASimpleFoam(DASolverBase):
             out.update(self.turb.equations(state, inputs, geom,
                                            state["phi"], gradU, relax_t))
         return out
+
+    # ------------------------------------------------------------------
+    # residuals (adjoint)
+    # ------------------------------------------------------------------
+    def residuals(self, state, inputs):
+        """R(W) of DAResidualSimpleFoam (per volume): R_U = UEqn & U +
+        grad(p), R_p = pEqn & p, R_phi = phiHbyA - pEqn.flux() - phi, and
+        the turbulence rows."""
+        geom = self.geometry(inputs)
+        topo = self.topo
+        U, p, phi = state["U"], state["p"], state["phi"]
+        UEqn, U_bco = self._ueqn(state, inputs, geom)
+        p_b = bc.boundary_value(self._bco_p(p, inputs, geom, phi), p, topo)
+        gradp = fvc.grad(geom, topo, p, p_b)
+        r_U = fvx.residual(UEqn, U, geom, topo) + gradp
+
+        _, rAU_f, _, phiHbyA, pM, p_bco = self._projection(
+            state, inputs, geom, UEqn, U_bco, U)
+        r_p = fvx.residual(pM, p, geom, topo)
+        r_phi = phiHbyA - fvm.laplacian_flux(geom, topo, rAU_f, p, p_bco) \
+            - phi
+        out = {"U": r_U, "p": r_p, "phi": r_phi}
+        if self.turb.model_states:
+            U_b = bc.boundary_value(U_bco, U, topo)
+            gradU = fvc.grad(geom, topo, U, U_b)
+            out.update(self.turb.residuals(state, inputs, geom, phi,
+                                           gradU=gradU))
+        return out
+
+    def _pc_matrices(self, state, inputs, geom):
+        """{state: (FvMatrix, symmetric)}: the momentum (upwind), pressure
+        and model operators at ``state``, built without a graph."""
+        with torch.no_grad():
+            UEqn, U_bco = self._ueqn(state, inputs, geom, is_pc=True)
+            pM = self._projection(state, inputs, geom, UEqn, U_bco,
+                                  state["U"])[4]
+            mats = {"U": (UEqn, False), "p": (pM, True)}
+            if self.turb.model_states:
+                U_b = bc.boundary_value(U_bco, state["U"], self.topo)
+                gradU = fvc.grad(geom, self.topo, state["U"], U_b)
+                mats.update(self.turb.pc_matrices(state, inputs, geom,
+                                                  state["phi"], gradU))
+        return mats
+
+    def make_adjoint_pc(self, state, inputs):
+        """The residual-form adjoint's preconditioner (precond.build_pc on
+        the segregated operators)."""
+        with torch.no_grad():
+            geom = self.geometry(inputs)
+            scales = self.state_scales(geom)
+        return build_pc(self._pc_matrices(state, inputs, geom), self.topo,
+                        geom, scales, self.option["adjEqnOption"])
+
+    def make_forward_pc(self, state, inputs):
+        """PC for the forward linearized system dR/dW (the untransposed
+        twin of make_adjoint_pc; see precond.build_forward_pc)."""
+        with torch.no_grad():
+            geom = self.geometry(inputs)
+        return build_forward_pc(self._pc_matrices(state, inputs, geom),
+                                self.topo, geom, self.option["adjEqnOption"])
 
     # ------------------------------------------------------------------
     # primal

@@ -6,9 +6,11 @@
 - One reverse product (I - dG^T) v and one tangent product (I - dG) v of
   the SIMPLE step map G on the 32x12 NACA0012 case (dense-DIA layout, f64,
   mg step-map smoother, damped Jacobi for U), from one state carried
-  across with convert.py.
+  across with convert.py; with the same solvers the normalized residuals R
+  of the residual-form adjoint and one vjp and one jvp of them (1e-12).
 - The fixed-point totals dCD/dnu and ||dCD/dpoints|| of a converged
-  primal against golden ``naca_sa``, and adjoint/tangent triangulation.
+  primal against golden ``naca_sa``, and adjoint/tangent triangulation;
+  the residual-form (Krylov) totals from the same converged state.
 
 About the product test's state and options. The step map is not
 differentiable everywhere, and the converged state sits on two kinks
@@ -27,6 +29,7 @@ totals test runs the golden options unchanged.
 
 import json
 import os
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -58,6 +61,13 @@ NORMALIZE = {"U": 1.0, "p": 0.5, "phi": 1.0, "nuTilda": 3 * NU}
 # it is larger.
 BAR_DNU = 1e-6
 BAR_DPOINTS = 3.6e-6
+# tests/test_golden.py:_case_naca_sa's residual-form adjoint options, with
+# one unrestarted FGMRES cycle: restarted every 400 iterations the solve
+# needs 2,301 of them here (dafoam_tpu: 2,313), one cycle needs 799 (both
+# measured on the CPU, f64), and each costs a residual vjp and a PC
+# application (~30 ms here); chip_smoke.py phase 4c runs restart 400
+GOLDEN_KRYLOV = {"gmresRelTol": 1e-9, "gmresRestart": 1000,
+                 "gmresMaxIters": 3000, "pcType": "segregated"}
 
 
 def fp_options(**over):
@@ -201,25 +211,34 @@ def converged():
     return s, inputs, state, info
 
 
-def test_step_map_products_match_jax(converged):
+@pytest.fixture(scope="module")
+def off_kink(converged):
+    """Both packages' solvers with equation relaxation 1 and smaller inner
+    budgets than the golden case's (one V-cycle each for p and nuTilda,
+    two damped-Jacobi sweeps for U: a short JAX trace), the converged
+    state perturbed by 2% and a random state-shaped vector, as numpy."""
     state0 = convert.state_to_numpy(converged[2])
     rng = np.random.default_rng(42)
     st = {k: a * (1.0 + 0.02 * rng.standard_normal(a.shape))
           for k, a in state0.items()}
     v = {k: rng.standard_normal(a.shape) for k, a in st.items()}
-    # smaller inner budgets than the golden case's keep the JAX trace short:
-    # one V-cycle each for p and nuTilda, two damped-Jacobi sweeps for U
     over = {"relaxationFactors": {"fields": {"p": 0.2},
                                   "equations": {"U": 1.0, "nuTilda": 1.0}},
             "primalLinearSolver": {"pMaxIters": 20, "pRelTol": 0.02,
                                    "uMaxIters": 5, "uRelTol": 0.05,
                                    "turbMaxIters": 20, "turbRelTol": 0.05}}
     sj = jax_solver(fp_options(**over))
-    st_ = torch_solver(fp_options(**over))
-    gj, gt = sj._fp_step_fn(), st_._fp_step_fn()
     ij = sj.make_inputs()
-    it = convert.inputs_from_numpy(
-        jax.tree_util.tree_map(np.asarray, ij), "cpu", torch.float64)
+    return SimpleNamespace(
+        st=st, v=v, sj=sj, ij=ij, s=torch_solver(fp_options(**over)),
+        it=convert.inputs_from_numpy(
+            jax.tree_util.tree_map(np.asarray, ij), "cpu", torch.float64))
+
+
+def test_step_map_products_match_jax(off_kink):
+    ok = off_kink
+    st, v, ij, it = ok.st, ok.v, ok.ij, ok.it
+    gj, gt = ok.sj._fp_step_fn(), ok.s._fp_step_fn()
     wj = {k: jnp.asarray(a) for k, a in st.items()}
     vj = {k: jnp.asarray(a) for k, a in v.items()}
 
@@ -241,6 +260,43 @@ def test_step_map_products_match_jax(converged):
     for k in st:
         assert_close(rev_t[k], rev_j[k], 1e-10, f"(I - dG^T) v, {k}")
         assert_close(tan_t[k], tan_j[k], 1e-10, f"(I - dG) v, {k}")
+
+
+def test_norm_residuals_and_products_match_jax(off_kink):
+    """The normalized residuals of the residual-form adjoint and one vjp and
+    one jvp of them, with off_kink's solvers at 30 SIMPLE iterations from
+    the initial state perturbed by 2% (at the converged state R is a
+    difference of nearly equal terms and its rounding is ~1e-12 of
+    max|R|)."""
+    ok = off_kink
+    s = ok.s
+    s.option.set("primalMaxIters", 30)
+    s.option.set("primalMinResTol", 0.0)
+    w30, _ = s.run_primal(s.init_state(), ok.it)
+    rng = np.random.default_rng(3)
+    st = {k: a * (1.0 + 0.02 * rng.standard_normal(a.shape))
+          for k, a in convert.state_to_numpy(w30).items()}
+
+    @jax.jit
+    def products(w, vv):
+        f = lambda w_: ok.sj._norm_residuals(w_, ok.ij)  # noqa: E731
+        r, f_vjp = jax.vjp(f, w)
+        _, t = jax.jvp(f, (w,), (vv,))
+        return r, f_vjp(vv)[0], t
+
+    rj, gj, tj = products({k: jnp.asarray(a) for k, a in st.items()},
+                          {k: jnp.asarray(a) for k, a in ok.v.items()})
+    wt = convert.state_from_numpy(st, "cpu", torch.float64)
+    vt = convert.state_from_numpy(ok.v, "cpu", torch.float64)
+    f = lambda w: s._norm_residuals(w, ok.it)  # noqa: E731
+    rt, f_vjp = tadj.vjp(f, wt)
+    gt = f_vjp(vt)
+    _, tt = tadj.jvp(f, wt, vt)
+    assert set(rt) == set(rj) == {"U", "p", "phi", "nuTilda"}
+    for k in rj:
+        assert_close(rt[k], rj[k], 1e-12, f"R {k}")
+        assert_close(gt[k], gj[k], 1e-12, f"dR^T v {k}")
+        assert_close(tt[k], tj[k], 1e-12, f"dR v {k}")
 
 
 # ---------------------------------------------------------------------------
@@ -296,9 +352,33 @@ def test_adjoint_and_tangent_triangulate(converged, totals):
     assert abs(float(dJ) - adj) <= 1e-6 * abs(adj), (float(dJ), adj)
 
 
+def test_residual_form_totals_meet_golden(converged):
+    """The residual-form (Krylov) adjoint with golden naca_sa's adjEqnOption
+    (FGMRES to rel 1e-9, segregated PC; one cycle, see GOLDEN_KRYLOV) from
+    the converged dense-layout state: golden totals at the dense-layout
+    bars, and the PC's transposed products ran the K3a plain versions."""
+    with open(os.path.join(REPO, "tests", "golden", "values.json")) as fh:
+        want = json.load(fh)["naca_sa"]
+    s0, inputs, state, _ = converged
+    opts = naca_options("diaDense", normalizeStates=dict(NORMALIZE),
+                        adjEqnOption=dict(GOLDEN_KRYLOV))
+    s = torch_solver(opts)
+    assert s.option["adjEqnSolMethod"] == "Krylov"      # the default
+    dk.reset_counts()
+    psi, info = s.solve_adjoint(state, inputs, "CD")
+    counts = dict(dk.COUNTS)
+    tot = s.total_derivative(state, inputs, "CD", psi)
+    assert info.converged and info.resid <= 1e-9 * info.resid0, info
+    dnu = float(tot["params"]["nu"])
+    dpts = float(torch.linalg.norm(tot["points"]))
+    assert abs(dnu - want["dCD_dnu"]) <= BAR_DNU * abs(want["dCD_dnu"]), dnu
+    assert abs(dpts - want["dCD_dpoints_norm"]) \
+        <= BAR_DPOINTS * want["dCD_dpoints_norm"], dpts
+    for name in ("dia_matvec_t", "dia_matvec_multi_t"):
+        assert counts[name + "_plain"] > 0 and counts[name] == 0, name
+
+
 @pytest.mark.parametrize("key,value,error", [
-    ("adjEqnSolMethod", "Krylov", NotImplementedError),
-    ("fpInnerMode", "implicit", NotImplementedError),
     ("fpRelaxEquations", {"U": 0.9}, ValueError),
     ("fpRemat", True, NotImplementedError),
     ("fpInnerSmoother", "krylov", NotImplementedError)])

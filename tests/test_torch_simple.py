@@ -76,9 +76,6 @@ def test_solves_ran_through_the_dia_path(runs):
 
 def test_unported_parts_raise(runs):
     _, _, _, ts = runs
-    inputs = ts.make_inputs()
-    with pytest.raises(NotImplementedError):
-        ts.solve_adjoint(ts.init_state(), inputs, "CD")
     from dafoam_tpu_torch.solvers import make_solver
     for over in ({"solverName": "DAPimpleFoam"},
                  {"turbulenceModel": "kOmegaSST"},
