@@ -54,20 +54,47 @@ case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
    ms to build the PC, ms per preconditioned iteration, resid0 -> resid,
    peak device memory and launches per iteration; psi and the totals must
    be finite, K3a launched and no plain version;
+4e. golden cavity: the laminar lid-driven cavity of
+   tests/test_golden.py:_case_cavity_simple (10x10 box, an all-Neumann
+   pressure: adjustPhi and a reference cell) on the dense-DIA layout in
+   f64: primal, the default residual-form adjoint and the totals; lidForce
+   at 1e-8, dLidForce/dnu, dLidForce/dU_lid,x and ||dLidForce/dpoints|| at
+   1e-6 against tests/golden/values.json; K1, K2 and K3a launched, no
+   plain version;
+5c. multigrid PC: 20 SIMPLE iterations from phase 5's state with pPC "mg"
+   (one V-cycle per BiCGStab preconditioning); p iterations per solve
+   against Jacobi-CG's cap and phase 5b's line PC, ms per iteration;
+6c. fpRemat: 20 fixed-point GMRES iterations from phase 5's state with and
+   without adjEqnOption.fpRemat; ms per product and peak device memory of
+   each; psibar must agree at rel 1e-5;
+6d. "krylov" step-map smoother: one 30-iteration fixed-point cycle with
+   fpInnerSmoother "krylov"; resid0 -> resid and ms per product;
 7. kernel times at 262,144 cells: device time per call (profiler) of each
    kernel, its plain version and the one-call library equivalent
    (torch.mv on a CSR copy of the matrix, cuSPARSE), back to back (CUDA
-   events), and the bound. They come last so that no profiler session
-   precedes the main path's timings.
+   events), and the bound. They run last, after phase 8b, so that no
+   profiler session precedes the main path's timings;
+8. kOmegaSST at full width: the 512x512 case with turbulenceModel
+   kOmegaSST (k and omega farfield inletOutlet at 1.5 (0.05 |U_inf|)^2 and
+   k_inf / (3 nu), wall k 1e-10 and omega 10 * 6 nu / (beta1 d1^2), d1 the
+   smallest first-cell wall distance), 300 SIMPLE iterations (finite,
+   valid, max_res falls, CD finite), then one 120-iteration fixed-point
+   adjoint cycle with bench.py's adjEqnOption and the totals (finite);
+   K1/K2 in the primal and every K3 kernel in the adjoint, no plain call;
+8b. 20 SIMPLE iterations at 512x512 for each of kEpsilon, kOmega,
+   kOmegaSSTLM and Spalart-Allmaras with Spalding wall functions: finite,
+   K1/K2 launched, no plain call.
 
 ``--profile`` adds a torch.profiler table of one more SIMPLE iteration, of
-one (I - dG^T) product and of one residual-form iteration (a residual vjp
-and one segregated PC application). The last line of standard output is
+one (I - dG^T) product, of one residual-form iteration (a residual vjp
+and one segregated PC application) and of one SIMPLE iteration with the
+multigrid pressure PC. The last line of standard output is
 one JSON object with "ok" and the device; the line before it repeats the
 card's name and power limit, and the one before that lists every kernel
-with its launches on the full-width paths (phases 5, 5b, 6 and 6b, each
-counted from zero; "launches_by_path" splits them), its error against
-the plain version, its times and its bound.
+with its launches on the full-width paths (phases 5, 5b, 5c, 6, 6b, 6c,
+6d, 8 and 8b, each counted from zero; "launches_by_path" splits them),
+its error against the plain version, its times and its bound. The script
+prints its total wall seconds before those lines.
 """
 
 import argparse
@@ -223,6 +250,77 @@ def golden_implicit_options():
     implicit rule."""
     opts = golden_adjoint_options()
     opts["adjEqnOption"]["fpInnerMode"] = "implicit"
+    return opts
+
+
+def cavity_options():
+    """tests/test_golden.py:_case_cavity_simple on the dense-DIA layout."""
+    zero = [0.0, 0.0, 0.0]
+    return {
+        "solverName": "DASimpleFoam", "turbulenceModel": "None",
+        "transportProperties": {"nu": 0.01},
+        "boundaryConditions": {
+            "U": {"ymax": {"type": "fixedValue", "value": [1.0, 0.0, 0.0]},
+                  "ymin": {"type": "fixedValue", "value": zero},
+                  "xmin": {"type": "fixedValue", "value": zero},
+                  "xmax": {"type": "fixedValue", "value": zero}},
+            "p": {n: {"type": "zeroGradient"}
+                  for n in ("xmin", "xmax", "ymin", "ymax")}},
+        "initialFields": {"U": zero, "p": 0.0},
+        "primalMinResTol": 1e-11, "primalMaxIters": 500,
+        "relaxationFactors": {"fields": {"p": 0.3},
+                              "equations": {"U": 0.7}},
+        "function": {"lidForce": {"type": "force", "patches": ["ymax"],
+                                  "directionMode": "fixedDirection",
+                                  "direction": [1.0, 0.0, 0.0],
+                                  "scale": 1.0}},
+        "adjEqnOption": {"gmresRelTol": 1e-10, "gmresRestart": 150,
+                         "gmresMaxIters": 3000},
+        "normalizeStates": {"U": 1.0, "p": 0.5, "phi": 1.0},
+        "meshFaceLayout": "diaDense"}
+
+
+KINF = 1.5 * (0.05 * 1.0) ** 2      # 5% turbulence intensity at |U_inf| 1
+WINF = KINF / (3.0 * NU)             # nut_inf = 3 nu, as nuTilda_inf = 3 nu
+BETA1 = 0.075
+
+
+def turb_options(model, d1, adjoint=False):
+    """The full-width case with ``model``: farfield inletOutlet at the
+    farfield values, initial fields there, bench.py's solver options
+    (and, with ``adjoint``, its fixed-point adjoint options)."""
+    opts = bench_adjoint_options() if adjoint else bench_options()
+    opts["turbulenceModel"] = model
+    bcs = opts["boundaryConditions"]
+    init = opts["initialFields"]
+    norm = dict(opts.get("normalizeStates", {}))
+    w_wall = 10.0 * 6.0 * NU / (BETA1 * d1 ** 2)     # Menter
+
+    def field(name, far, wing):
+        bcs[name] = {"far": {"type": "inletOutlet", "value": far},
+                     "wing": wing}
+        init[name] = far
+        norm[name] = far
+
+    def fixed(v):
+        return {"type": "fixedValue", "value": v}
+
+    if model == "SpalartAllmaras":
+        bcs["nuTilda"]["wing"] = {"type": "zeroGradient"}
+        bcs["nut"] = {"wing": {"type": "nutUSpaldingWallFunction"}}
+    else:
+        del bcs["nuTilda"], init["nuTilda"]
+        norm.pop("nuTilda", None)
+        field("k", KINF, fixed(1e-10))
+        if model == "kEpsilon":
+            field("epsilon", 0.09 * KINF * WINF, fixed(0.09 * KINF * w_wall))
+        else:
+            field("omega", WINF, fixed(w_wall))
+        if model == "kOmegaSSTLM":
+            field("ReThetat", 120.0, {"type": "zeroGradient"})
+            field("gammaInt", 1.0, {"type": "zeroGradient"})
+    if adjoint:
+        opts["normalizeStates"] = norm
     return opts
 
 
@@ -707,6 +805,44 @@ def phase_golden_implicit(torch, dk, make_solver, omesh, state, want):
     check_counts(counts, "golden implicit", ADJOINT_KERNELS)
 
 
+def phase_golden_cavity(torch, dk, make_solver, box):
+    """Phase 4e: golden cavity_simple on the card (f64, dense layout)."""
+    with open(os.path.join(HERE, "tests", "golden", "values.json")) as fh:
+        want = json.load(fh)["cavity_simple"]
+    pts, topo = box(10, 10, 1, (0.1, 0.1, 0.01),
+                    kinds={"zmin": "empty", "zmax": "empty", "xmin": "wall",
+                           "xmax": "wall", "ymin": "wall", "ymax": "wall"})
+    s = make_solver(cavity_options(), topo, pts, device=DEVICE,
+                    dtype=torch.float64)
+    check(s.topo.dia_dense() is not None, "cavity runs dense-DIA")
+    x = s.make_inputs()
+    dk.reset_counts()
+    t0 = time.perf_counter()
+    w, info = s.run_primal(s.init_state(), x)
+    lid = float(s.run_function("lidForce", w, x))
+    psi, ainfo = s.run_adjoint("lidForce", w, x)
+    tot = s.run_totals("lidForce", w, x, psi)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(dk.COUNTS)
+    got = {"lidForce": lid, "dLidForce_dnu": float(tot["params"]["nu"]),
+           "dLidForce_dUlid_x": float(tot["bc"]["U"]["ymax"][0]),
+           "dLidForce_dpoints_norm": float(torch.linalg.norm(tot["points"]))}
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+    say(f"[cavity] 10x10 f64 dense: primal {info.iters} iters (max_res "
+        f"{info.max_res:.3e}); adjoint {ainfo.iters} FGMRES iters, resid "
+        f"{ainfo.resid0:.3e} -> {ainfo.resid:.3e}; {dt:.1f} s in all; "
+        + ", ".join(f"{k} {got[k]!r} (rel {rel[k]:.2e})" for k in want)
+        + f"; launch counts {counts}")
+    check(info.converged and not info.failed, f"cavity primal: {info}")
+    check(ainfo.converged, f"cavity adjoint: {ainfo}")
+    for k, r in rel.items():
+        check(r <= (1e-8 if k == "lidForce" else 1e-6),
+              f"cavity {k} off golden by {r:.2e}")
+    check_counts(counts, "golden cavity",
+                 PRIMAL_KERNELS + ("dia_matvec_t", "dia_matvec_multi_t"))
+
+
 def setup_full(torch, make_solver, omesh):
     t0 = time.perf_counter()
     pts, topo = omesh(n_wrap=FULL, n_radial=FULL, radius=15.0,
@@ -771,10 +907,10 @@ def phase_profile(torch, s, inputs, st):
         f"{wall * 1e3:.2f} ms wall")
 
 
-def phase_adjoint(torch, dk, adjsolver, s, inputs, st):
-    """Phase 6, the adjoint's main path: one solve_adjoint call (one
-    restart cycle) and one total_derivative from the 300-iteration state.
-    Returns the launch counts of the solve."""
+def phase_adjoint(torch, dk, adjsolver, s, inputs, st, tag="adjoint"):
+    """Phase 6 (and 8's adjoint), the adjoint's main path: one
+    solve_adjoint call (one restart cycle) and one total_derivative from
+    the 300-iteration state. Returns the launch counts of the solve."""
     restart = s.option["adjEqnOption"]["gmresRestart"]
     state = {k: v.detach() for k, v in st.items()}
     dk.reset_counts()
@@ -790,16 +926,16 @@ def phase_adjoint(torch, dk, adjsolver, s, inputs, st):
     # and one per Arnoldi step
     products = ainfo.iters + math.ceil(ainfo.iters / restart) + 1
     per = {k: counts[k] / products for k in REVERSE}
-    say(f"[adjoint] {FULL}x{FULL} f32 fixed-point adjoint: {ainfo.iters} "
+    say(f"[{tag}] {FULL}x{FULL} f32 fixed-point adjoint: {ainfo.iters} "
         f"GMRES iters ({products} (I - dG^T) products) in {dt:.2f} s = "
         f"{dt / products * 1e3:.1f} ms per product; resid0 "
         f"{ainfo.resid0:.6e} -> resid {ainfo.resid:.6e}; peak device "
         f"memory {peak:.0f} MiB")
-    say("[adjoint] K3 launches per product: " + ", ".join(
+    say(f"[{tag}] K3 launches per product: " + ", ".join(
         f"{k} {v:.2f}" for k, v in per.items()) + f"; forward K1 "
         f"{counts['dia_matvec']}, K2 {counts['dia_matvec_multi']} (one "
         "recorded step map)")
-    say(f"[adjoint] launch counts {counts}")
+    say(f"[{tag}] launch counts {counts}")
 
     # one product alone, on the recorded graph
     step = s._fp_step_fn()
@@ -811,7 +947,7 @@ def phase_adjoint(torch, dk, adjsolver, s, inputs, st):
         f_vjp(psibar)
     torch.cuda.synchronize()
     one = (time.perf_counter() - t0) / 5
-    say(f"[adjoint] one dG^T v product alone: {one * 1e3:.1f} ms (host "
+    say(f"[{tag}] one dG^T v product alone: {one * 1e3:.1f} ms (host "
         "clock, mean of 5)")
 
     t0 = time.perf_counter()
@@ -819,22 +955,23 @@ def phase_adjoint(torch, dk, adjsolver, s, inputs, st):
     torch.cuda.synchronize()
     dnu = float(tot["params"]["nu"])
     dpts = float(torch.linalg.norm(tot["points"]))
-    say(f"[adjoint] total_derivative {time.perf_counter() - t0:.2f} s: "
+    say(f"[{tag}] total_derivative {time.perf_counter() - t0:.2f} s: "
         f"dCD/dnu {dnu!r}, ||dCD/dpoints|| {dpts!r}")
     check(all(bool(torch.isfinite(v).all()) for v in psibar.values()),
           "psibar is not finite")
     check(math.isfinite(dnu) and math.isfinite(dpts), "totals not finite")
     check(ainfo.resid < ainfo.resid0,
           f"adjoint residual did not fall: {ainfo}")
-    check_counts(counts, "full-width adjoint", ADJOINT_KERNELS)
+    check_counts(counts, f"full-width {tag}", ADJOINT_KERNELS)
     return counts, f_vjp, psibar
 
 
-def phase_line_primal(torch, dk, s, inputs, st):
-    """Phase 5b: 20 SIMPLE iterations from phase 5's state with the line
-    preconditioner on the pressure. Returns the launch counts."""
+def phase_pc_primal(torch, dk, s, inputs, st, pc, tag, line_p=None):
+    """Phases 5b/5c: 20 SIMPLE iterations from phase 5's state with the
+    line (5b) or multigrid (5c) preconditioner on the pressure. Returns
+    the launch counts and the BiCGStab iterations per p solve."""
     iters = 20
-    lin = dict(s.option["primalLinearSolver"], pPC="line")
+    lin = dict(s.option["primalLinearSolver"], pPC=pc)
     s.solve_stats.clear()
     with overridden(s.option, primalLinearSolver=lin, primalMinIters=iters,
                     primalMaxIters=iters):
@@ -846,17 +983,161 @@ def phase_line_primal(torch, dk, s, inputs, st):
         dt = time.perf_counter() - t0
         counts = dict(dk.COUNTS)
     per = {k: v[1] / v[0] for k, v in s.solve_stats.items()}
-    say(f"[line] {FULL}x{FULL} f32, pPC line: {iters} SIMPLE iterations in "
+    line = "" if line_p is None else \
+        f", the line PC's {line_p:.2f} in phase 5b"
+    say(f"[{tag}] {FULL}x{FULL} f32, pPC {pc}: {iters} SIMPLE iterations in "
         f"{dt:.2f} s = {dt / iters * 1e3:.2f} ms/iter; max_res "
         f"{info.max_res:.4e}; Krylov iterations per solve: "
         + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
-        + f" (Jacobi-CG p: its cap of "
-        f"{s.option['primalLinearSolver']['pMaxIters']}); launch counts "
-        f"{counts}")
+        + f" (p against Jacobi-CG's cap of "
+        f"{s.option['primalLinearSolver']['pMaxIters']}{line}); launch "
+        f"counts {counts}")
     check(info.iters == iters and s.states_valid(st2) and not info.failed,
-          f"line-PC primal: {info}")
-    check_counts(counts, "line-PC primal")
+          f"{pc}-PC primal: {info}")
+    check_counts(counts, f"{pc}-PC primal")
+    return counts, per["p"]
+
+
+def _fp_cycle(torch, dk, s, inputs, state, **adj):
+    """One solve_adjoint call of the fixed-point adjoint with adjEqnOption
+    items overridden: (psibar, info, seconds, products, peak MiB,
+    counts)."""
+    opt = dict(s.option["adjEqnOption"], **adj)
+    with overridden(s.option, adjEqnOption=opt):
+        dk.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        psibar, ainfo = s.solve_adjoint(state, inputs, "CD")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    products = ainfo.iters + math.ceil(ainfo.iters / opt["gmresRestart"]) \
+        + 1
+    return (psibar, ainfo, dt, products,
+            torch.cuda.max_memory_allocated() / 2**20, dict(dk.COUNTS))
+
+
+def phase_remat(torch, dk, s, inputs, st):
+    """Phase 6c: 20 fixed-point GMRES iterations with and without fpRemat.
+    Returns the launch counts of the fpRemat run."""
+    state = {k: v.detach() for k, v in st.items()}
+    out = {}
+    for remat in (False, True):
+        psibar, ainfo, dt, products, peak, counts = _fp_cycle(
+            torch, dk, s, inputs, state, fpRemat=remat, fpMaxIters=20,
+            gmresRestart=20)
+        say(f"[remat] {FULL}x{FULL} f32 fpRemat {remat}: {ainfo.iters} GMRES"
+            f" iters, {products} products in {dt:.2f} s = "
+            f"{dt / products * 1e3:.1f} ms per product; resid "
+            f"{ainfo.resid0:.6e} -> {ainfo.resid:.6e}; peak device memory "
+            f"{peak:.0f} MiB; launch counts {counts}")
+        check(all(bool(torch.isfinite(v).all()) for v in psibar.values()),
+              f"fpRemat {remat}: psibar is not finite")
+        check_counts(counts, f"fpRemat {remat}", ADJOINT_KERNELS)
+        out[remat] = (psibar, counts)
+    a, b = out[True][0], out[False][0]
+    rel = max(float((a[k] - b[k]).abs().max())
+              / max(float(b[k].abs().max()), 1e-30) for k in b)
+    say(f"[remat] psibar with and without fpRemat: max rel difference "
+        f"{rel:.3e} (bar 1e-5)")
+    check(rel <= 1e-5, f"fpRemat psibar differs by {rel:.3e}")
+    return out[True][1]
+
+
+def phase_krylov_smoother(torch, dk, s, inputs, st):
+    """Phase 6d: one 30-iteration fixed-point cycle with the "krylov"
+    step-map smoother. Returns the launch counts."""
+    state = {k: v.detach() for k, v in st.items()}
+    psibar, ainfo, dt, products, peak, counts = _fp_cycle(
+        torch, dk, s, inputs, state, fpInnerSmoother="krylov",
+        fpMaxIters=30, gmresRestart=30)
+    say(f"[krylov] {FULL}x{FULL} f32 fpInnerSmoother krylov: {ainfo.iters} "
+        f"GMRES iters, {products} products in {dt:.2f} s = "
+        f"{dt / products * 1e3:.1f} ms per product; resid "
+        f"{ainfo.resid0:.6e} -> {ainfo.resid:.6e}; peak device memory "
+        f"{peak:.0f} MiB; launch counts {counts}")
+    check(all(bool(torch.isfinite(v).all()) for v in psibar.values()),
+          "krylov smoother: psibar is not finite")
+    check(math.isfinite(ainfo.resid), f"krylov smoother: {ainfo}")
+    check_counts(counts, "krylov smoother", ADJOINT_KERNELS)
     return counts
+
+
+def phase_turb_full(torch, dk, adjsolver, make_solver, s0):
+    """Phase 8: kOmegaSST at full width, primal then fixed-point adjoint.
+    Returns (primal counts, adjoint counts)."""
+    d1 = float(s0.wall_dist.min())
+    t0 = time.perf_counter()
+    s = make_solver(turb_options("kOmegaSST", d1, adjoint=True), s0.topo,
+                    s0.points.cpu().numpy(), device=DEVICE,
+                    dtype=torch.float32)
+    inputs = s.make_inputs()
+    st0 = s.init_state()
+    torch.cuda.synchronize()
+    say(f"[sst] set-up {time.perf_counter() - t0:.1f} s; d1 {d1:.4e}, wall "
+        f"omega {10.0 * 6.0 * NU / (BETA1 * d1 ** 2):.4e}")
+    st, res1, info, dt, counts, cd = run_full(torch, dk, s, inputs, st0)
+    per = {k: v[1] / ITERS for k, v in s.solve_stats.items()}
+    say(f"[sst] {FULL}x{FULL} f32 kOmegaSST: {ITERS} SIMPLE iterations in "
+        f"{dt:.2f} s = {dt / ITERS * 1e3:.2f} ms/iter; max_res first "
+        f"{res1:.4e} final {info.max_res:.4e}; CD {cd!r}; Krylov "
+        "iterations per SIMPLE iteration: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+        + f"; k in [{float(st['k'].min()):.3e}, {float(st['k'].max()):.3e}]"
+        f", omega in [{float(st['omega'].min()):.3e}, "
+        f"{float(st['omega'].max()):.3e}]; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    say(f"[sst] launch counts {counts}")
+    check(info.iters == ITERS, "kOmegaSST iteration count")
+    check(s.states_valid(st), "kOmegaSST state is not finite/valid")
+    check(not info.failed, f"kOmegaSST primal failed: {info}")
+    check(info.max_res < res1,
+          f"kOmegaSST max_res did not fall: {res1} -> {info.max_res}")
+    check(math.isfinite(cd), f"kOmegaSST CD not finite: {cd}")
+    check_counts(counts, "kOmegaSST full width")
+    adj_counts, _, _ = phase_adjoint(torch, dk, adjsolver, s, inputs, st,
+                                     tag="sst-adjoint")
+    return counts, adj_counts
+
+
+def phase_turb_models(torch, dk, make_solver, s0):
+    """Phase 8b: 20 SIMPLE iterations at full width per model. Returns
+    {model: launch counts}."""
+    d1 = float(s0.wall_dist.min())
+    iters = 20
+    out = {}
+    for model in ("kEpsilon", "kOmega", "kOmegaSSTLM", "SpalartAllmaras"):
+        opts = turb_options(model, d1)
+        opts.update(primalMinIters=iters, primalMaxIters=iters)
+        t0 = time.perf_counter()
+        s = make_solver(opts, s0.topo, s0.points.cpu().numpy(),
+                        device=DEVICE, dtype=torch.float32)
+        inputs = s.make_inputs()
+        st0 = s.init_state()
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        dk.reset_counts()
+        s.solve_stats.clear()
+        t0 = time.perf_counter()
+        st, info = s.run_primal(st0, inputs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(dk.COUNTS)
+        cd = float(s.run_function("CD", st, inputs))
+        name = model + (" + Spalding" if model == "SpalartAllmaras" else "")
+        say(f"[models] {FULL}x{FULL} f32 {name}: set-up {setup:.1f} s; "
+            f"{iters} SIMPLE iterations in {dt:.2f} s = "
+            f"{dt / iters * 1e3:.2f} ms/iter; max_res {info.max_res:.4e}; "
+            f"CD {cd!r}; Krylov iterations per solve: "
+            + ", ".join(f"{k} {v[1] / v[0]:.2f}"
+                        for k, v in s.solve_stats.items())
+            + f"; launch counts {counts}")
+        check(info.iters == iters and s.states_valid(st) and not info.failed,
+              f"{name} primal: {info}")
+        check(math.isfinite(cd), f"{name} CD not finite: {cd}")
+        check_counts(counts, f"{name} full width")
+        out[model] = counts
+    return out
 
 
 def phase_residual_full(torch, dk, s, inputs, st):
@@ -958,15 +1239,18 @@ def residual_iteration(torch, adjsolver, s, inputs, st):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one SIMPLE iteration, one adjoint "
-                         "product and one residual-form iteration at 512x512")
+                    help="also profile one SIMPLE iteration (Jacobi and mg "
+                         "pressure PC), one adjoint product and one "
+                         "residual-form iteration at 512x512")
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     import torch
     card = phase_device(torch)
 
     sys.path.insert(0, HERE)
     from dafoam_tpu_torch.adjoint import solver as adjsolver
+    from dafoam_tpu_torch.mesh import box_hex_mesh
     from dafoam_tpu_torch.mesh.airfoil import omesh_naca0012
     from dafoam_tpu_torch.ops import dia_kernels as dk
     from dafoam_tpu_torch.ops import fvmatrix as fvx
@@ -985,6 +1269,7 @@ def main():
                           gwant)
     phase_golden_implicit(torch, dk, make_solver, omesh_naca0012, gstate,
                           gwant)
+    phase_golden_cavity(torch, dk, make_solver, box_hex_mesh)
 
     st, res1, info, dt, counts, cd = run_full(torch, dk, s, inputs, st0)
     per = {k: v[1] / ITERS for k, v in s.solve_stats.items()}
@@ -1004,10 +1289,18 @@ def main():
     check(math.isfinite(cd), f"CD not finite: {cd}")
     check_counts(counts, "full width")
 
-    line_counts = phase_line_primal(torch, dk, s, inputs, st)
+    line_counts, line_p = phase_pc_primal(torch, dk, s, inputs, st, "line",
+                                          "line")
+    mg_counts, _ = phase_pc_primal(torch, dk, s, inputs, st, "mg", "mg",
+                                   line_p=line_p)
     adj_counts, f_vjp, psibar = phase_adjoint(torch, dk, adjsolver, s,
                                               inputs, st)
     res_counts = phase_residual_full(torch, dk, s, inputs, st)
+    remat_counts = phase_remat(torch, dk, s, inputs, st)
+    krylov_counts = phase_krylov_smoother(torch, dk, s, inputs, st)
+    sst_counts, sst_adj_counts = phase_turb_full(torch, dk, adjsolver,
+                                                 make_solver, s)
+    model_counts = phase_turb_models(torch, dk, make_solver, s)
     phase_kernel_times(torch, dk, real, stats)
 
     if args.profile:
@@ -1016,10 +1309,20 @@ def main():
         profile_call(torch, "one residual-form iteration (residual vjp + "
                      "segregated PC)",
                      residual_iteration(torch, adjsolver, s, inputs, st))
+        lin = dict(s.option["primalLinearSolver"], pPC="mg")
+        with overridden(s.option, primalLinearSolver=lin):
+            profile_call(torch, "one SIMPLE iteration with pPC mg",
+                         lambda: s.run_primal(st, inputs))
 
     paths = {"primal": counts, "primal_line_pc": line_counts,
+             "primal_mg_pc": mg_counts,
              "fixed_point_adjoint": adj_counts,
-             **{f"residual_adjoint_{k}": v for k, v in res_counts.items()}}
+             **{f"residual_adjoint_{k}": v for k, v in res_counts.items()},
+             "fixed_point_adjoint_fpRemat": remat_counts,
+             "fixed_point_adjoint_krylov_smoother": krylov_counts,
+             "kOmegaSST_primal": sst_counts,
+             "kOmegaSST_fixed_point_adjoint": sst_adj_counts,
+             **{f"{k}_primal": v for k, v in model_counts.items()}}
     rows = []
     for name, meta in KERNELS.items():
         st_k = stats[name]
@@ -1034,6 +1337,8 @@ def main():
                      "bound_ms": st_k["bound_ms"],
                      "bound_by": st_k["bound_by"],
                      "library_ms": st_k["library_ms"]})
+    say(f"[total] {time.perf_counter() - t_start:.1f} s wall for the "
+        "whole script")
     say(json.dumps({"kernels": rows}))
     say(card)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,8 @@ Autograd replaces ``jax.vjp``/``jax.jvp``:
 - a reverse product (dR^T v, dG^T v) re-walks ONE recorded graph
   (``torch.autograd.grad`` with ``retain_graph=True``), recorded with the
   inputs detached, so each GMRES iteration costs a backward pass and no
-  forward;
+  forward (with ``fpRemat`` the step map is instead re-run for every
+  product and its graph freed after the backward);
 - a forward (tangent) product runs R or G once under
   ``torch.autograd.forward_ad``: ``torch.func.linearize`` would trace it
   with ``make_fx``, and the DIA kernels launch through ctypes, which a
@@ -201,11 +202,20 @@ def adjoint_solve_fp(step_fn: Callable, state, inputs, dJdW,
     calls, in the SCALED flat space). accel "richardson": plain sweeps
     y <- y + relax (S g - (I - S dG^T S^-1) y). Returns (psibar,
     SolveInfo[, recycle space]); psi0/psibar are unscaled at the API.
+    remat (fpRemat) trades the recorded graph for one forward per product.
     """
     if remat:
-        raise NotImplementedError(
-            "fpRemat is not ported yet (ROADMAP.md queue 1)")
-    _, f_vjp = vjp(lambda w: step_fn(w, inputs)[0], state)
+        # adjEqnOption.fpRemat: no graph is kept across products; each
+        # product re-runs the step map under grad and frees its graph in
+        # the backward pass (one more forward per product, the memory of
+        # one graph at a time)
+        def f_vjp(v):
+            p = _requiring_grad(state)
+            with torch.enable_grad():
+                out = step_fn(p, inputs)[0]
+            return _grad(out, p, v)
+    else:
+        _, f_vjp = vjp(lambda w: step_fn(w, inputs)[0], state)
 
     def matv(v):
         g = f_vjp(_scale(v, scales, invert=True))

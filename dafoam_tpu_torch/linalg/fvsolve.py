@@ -24,7 +24,10 @@ import contextlib
 
 import torch
 
-from dafoam_tpu_torch.linalg.krylov import (SolveInfo, bicgstab, cg,
+from dafoam_tpu_torch.adjoint.precond import transpose
+from dafoam_tpu_torch.linalg import mg as mgmod
+from dafoam_tpu_torch.linalg.krylov import (SolveInfo, bicgstab,
+                                            bicgstab_steps, cg, cg_steps,
                                             chebyshev_steps, jacobi_steps)
 from dafoam_tpu_torch.linalg.lines import (apply_line_solve,
                                            build_line_solves,
@@ -161,6 +164,10 @@ def solve(m: FvMatrix, psi0, topo, symmetric=False, rel_tol=1e-7,
     pc="line" (primalLinearSolver.pPC) preconditions with the ADI line
     solves of ``linalg/lines.py`` and switches to BiCGStab (the sweep is
     nonsymmetric); without line directions it falls back to Jacobi.
+    pc="mg" preconditions a scalar equation on a grid-form mesh with one
+    geometric-multigrid V-cycle (``linalg/mg.py``, omega 1.7) of the
+    detached matrix, also with BiCGStab; without a grid form it falls
+    through to "line".
     Transpose solves run to rel min(rel_tol, 1e-10) within max(max_iters,
     1000) iterations.
     """
@@ -170,10 +177,8 @@ def solve(m: FvMatrix, psi0, topo, symmetric=False, rel_tol=1e-7,
         x = solve_fixed(m, psi0, topo, symmetric=symmetric, n_iters=n,
                         rhs=rhs, smoother=smoother)
         return x, SolveInfo(n, 0.0, 0.0, True)
-    if pc not in ("jacobi", "line"):
-        raise NotImplementedError(
-            f"pc={pc!r} is not ported yet: the primal's multigrid "
-            "preconditioner (mg.mg_solver) is ROADMAP.md queue 1")
+    if pc not in ("jacobi", "line", "mg"):
+        raise ValueError(f"unknown pc {pc!r}")
     b = m.source if rhs is None else m.source + rhs
     cm = _component_major_ok(m, psi0, topo)
     if cm:
@@ -197,9 +202,20 @@ def solve(m: FvMatrix, psi0, topo, symmetric=False, rel_tol=1e-7,
 
     prec_t = prec
     solver = cg if symmetric else bicgstab
+    if pc == "mg":
+        if m.diag.ndim == 1 and psi0.ndim == 1 \
+                and mgmod.grid_structure(topo) is not None:
+            # one V-cycle (omega 1.7) of the frozen matrix; the transpose
+            # solve gets a hierarchy of its own built on A^T
+            h = mgmod.build_hierarchy(mf, topo)
+            ht = mgmod.build_hierarchy(transpose(mf), topo)
+            prec = lambda r: mgmod.vcycle(h, r, omega=1.7)  # noqa: E731
+            prec_t = lambda r: mgmod.vcycle(ht, r, omega=1.7)  # noqa: E731
+            solver = bicgstab        # the V-cycle is nonsymmetric
+        else:
+            pc = "line"              # no grid form: fall through to lines
     if pc == "line" and line_directions(topo):
         # the line PC works cell-major; wrap it for component-major solves
-        from dafoam_tpu_torch.adjoint.precond import transpose
         lp = line_solver(mf, topo)
         lpt = line_solver(transpose(mf), topo,
                           matvec=cell_major_matvec(mf, topo, matvec_t_fn))
@@ -239,8 +255,11 @@ def solve_fixed(m: FvMatrix, psi0, topo, symmetric=False, n_iters=20,
     "line": ADI line solves for scalar equations on a dense-DIA layout
     with line directions (``_LineSweep``), else to "linear":
     Chebyshev on the Jacobi-preconditioned operator for symmetric
-    equations, damped Jacobi otherwise. smoother="krylov" (the frozen
-    CG/BiCGStab step scans) is not ported yet and raises.
+    equations, damped Jacobi otherwise. smoother="krylov": the frozen
+    matrix's CG (symmetric) or BiCGStab steps with the sticky freeze of
+    ``cg_steps``/``bicgstab_steps`` (stronger contraction per step, but
+    its coefficient ratios depend on the defect: the freeze is what keeps
+    its reverse pass finite at the rounding floor).
     """
     b = m.source if rhs is None else m.source + rhs
     cm = _component_major_ok(m, psi0, topo)
@@ -261,7 +280,6 @@ def solve_fixed(m: FvMatrix, psi0, topo, symmetric=False, n_iters=20,
     dinv = 1.0 / torch.where(torch.abs(d_f) > td, d_f, 1.0)
 
     if smoother == "mg":
-        from dafoam_tpu_torch.linalg import mg as mgmod
         if x0.ndim == 1 and mgmod.grid_structure(topo) is not None:
             h = mgmod.build_hierarchy(msg, topo)
             sweeps = max(1, min(2, int(round(n_iters / 15))))
@@ -288,10 +306,15 @@ def solve_fixed(m: FvMatrix, psi0, topo, symmetric=False, n_iters=20,
             return x0 + c
         smoother = "linear"  # vector eq / no dense-DIA layout: fall back
 
+    if smoother == "krylov":
+        # frozen-matrix CG/BiCGStab steps on the live defect
+        stepper = cg_steps if symmetric else bicgstab_steps
+        c = stepper(mv_f, b - mv(x0), x0=torch.zeros_like(x0),
+                    precond=lambda r: dinv * r, n_steps=int(n_iters))
+        x = x0 + c
+        return x.t() if cm else x
     if smoother != "linear":
-        raise NotImplementedError(
-            f"fpInnerSmoother {smoother!r} (cg_steps/bicgstab_steps) is not "
-            "ported yet (ROADMAP.md queue 1)")
+        raise ValueError(f"unknown fpInnerSmoother {smoother!r}")
     r0 = b - mv(x0)                  # live defect
     if symmetric:
         # certain Gershgorin bound for lam(D^-1 A) of the FROZEN matrix: a
@@ -345,7 +368,6 @@ def _line_sweep(msg: FvMatrix, topo):
     """r -> L r of ``_LineSweep`` for the frozen scalar matrix ``msg``:
     forward defects through K1, transposed ones through K3a."""
     sv = build_line_solves(msg, topo)
-    from dafoam_tpu_torch.adjoint.precond import transpose
     sv_t = build_line_solves(transpose(msg), topo)
     mv1 = matvec_fn(msg, topo)
     mv2 = matvec_t_fn(msg, topo)

@@ -2,10 +2,12 @@
 
 Port of ``dafoam_tpu.linalg.krylov``: ``cg`` and ``bicgstab`` (the primal's
 inner solves), ``jacobi_steps`` and ``chebyshev_steps`` (the linear-in-
-defect smoothers of the fixed-point adjoint's step map) and ``gmres`` (the
-adjoint's restarted, optionally deflated FGMRES). The JAX versions run
-inside ``lax.while_loop``/``scan``; here the loops are Python and the exit
-tests read one number on the host per iteration (one device->host sync).
+defect smoothers of the fixed-point adjoint's step map), ``cg_steps`` and
+``bicgstab_steps`` (its "krylov" smoother: fixed step counts, no host
+read) and ``gmres`` (the adjoint's restarted, optionally deflated FGMRES).
+The JAX versions run inside ``lax.while_loop``/``scan``; here the loops
+are Python and the exit tests of ``cg``, ``bicgstab`` and ``gmres`` read
+one number on the host per iteration (one device->host sync).
 The exit rules are the JAX ones exactly:
 
 - cg:        iterate while it < max_iters and ||r|| > tol
@@ -178,14 +180,106 @@ def bicgstab(matvec: Callable, b, x0=None, precond: Callable | None = None,
 
 
 # ---------------------------------------------------------------------------
-# Fixed-step smoothers: linear in the defect, exactly reverse-differentiable
+# Fixed-step smoothers: exactly reverse-differentiable
 # ---------------------------------------------------------------------------
 #
 # The fixed-point adjoint differentiates the primal step map G(W) = W -
 # C(W) R(W). At a converged primal (R ~ 0) any smooth approximate inverse C
 # gives exact totals, provided autograd differentiates the map actually
-# computed. A fixed number of steps with data-independent coefficients is
-# smooth and its reverse pass is the exact transpose.
+# computed. A fixed number of steps is smooth and its reverse pass is the
+# exact transpose; jacobi_steps and chebyshev_steps are moreover linear in
+# the defect (data-independent coefficients), while the Krylov steps'
+# <r,z>/<p,Ap> ratios need the sticky freeze below.
+
+def _eps_and_live(b):
+    bl = tree.leaves(b)[0]
+    return (torch.finfo(bl.dtype).eps,
+            torch.ones((), dtype=torch.bool, device=bl.device))
+
+
+def cg_steps(matvec: Callable, b, x0=None, precond: Callable | None = None,
+             n_steps=20):
+    """n_steps of preconditioned CG with no convergence exit (the "krylov"
+    step-map smoother). Guarded divisions keep the map smooth near
+    breakdown.
+
+    STICKY freeze: once <r, z> falls to (256 eps)^2 of the problem scale
+    max(|<b, M^-1 b>|, |<r0, z0>|), further steps would iterate on
+    rounding noise, which explodes in the reverse pass. A frozen step has
+    alpha = 0 and is an exact identity; the freeze is a 0-d device tensor
+    carried across steps, so noise cannot unfreeze it and no step reads
+    anything on the host."""
+    precond = precond or _identity
+    x = tzeros_like(b) if x0 is None else x0
+    r = tree.tmap(torch.sub, b, matvec(x))
+    z = precond(r)
+    rz = tdot(r, z)
+    eps, live = _eps_and_live(b)
+    # relative to the problem scale, not to r0: a warm-started solve at a
+    # converged state starts AT the noise floor
+    bz = torch.abs(tdot(b, precond(b))).detach()
+    cutoff = (256.0 * eps) ** 2 * torch.maximum(bz, torch.abs(rz.detach()))
+    p = z
+    tp = guard_tiny(rz.dtype)
+    for _ in range(int(n_steps)):
+        arz = torch.abs(rz.detach())
+        live = live & torch.isfinite(arz) & (arz > cutoff)
+        ap = matvec(p)
+        pap = tdot(p, ap)
+        alpha = torch.where(live, rz / _guard(pap, tp), 0.0)
+        x = taxpy(alpha, p, x)
+        r = taxpy(-alpha, ap, r)
+        z = precond(r)
+        rz_new = tdot(r, z)
+        beta = torch.where(live, rz_new / _guard(rz, tp), 0.0)
+        p = taxpy(beta, p, z)
+        rz = rz_new
+    return x
+
+
+def bicgstab_steps(matvec: Callable, b, x0=None,
+                   precond: Callable | None = None, n_steps=10):
+    """n_steps of preconditioned BiCGStab with no restarts and no
+    convergence exit (guarded divisions), with cg_steps' sticky freeze at
+    (256 eps)^2 max(<b, b>, <r0, r0>) on <r, r>; a frozen step keeps r and
+    has alpha = omega = 0."""
+    precond = precond or _identity
+    x = tzeros_like(b) if x0 is None else x0
+    r = tree.tmap(torch.sub, b, matvec(x))
+    rhat = r
+    eps, live = _eps_and_live(b)
+    one = torch.ones((), dtype=tree.leaves(b)[0].dtype, device=live.device)
+    cutoff = (256.0 * eps) ** 2 * torch.maximum(tdot(b, b).detach(),
+                                                tdot(r, r).detach())
+    p = v = tzeros_like(b)
+    rho = alpha = omega = one
+    tb = guard_tiny(one.dtype)
+    for _ in range(int(n_steps)):
+        rr = tdot(r, r).detach()
+        live = live & torch.isfinite(rr) & (rr > cutoff)
+        rho_new = tdot(rhat, r)
+        beta = (rho_new / _guard(rho, tb)) * (alpha / _guard(omega, tb))
+        p = tree.tmap(lambda ri, pi, vi: ri + beta * (pi - omega * vi),
+                      r, p, v)
+        phat = precond(p)
+        v = matvec(phat)
+        alpha_n = rho_new / _guard(tdot(rhat, v), tb)
+        s_vec = taxpy(-alpha_n, v, r)
+        shat = precond(s_vec)
+        t = matvec(shat)
+        tt = tdot(t, t)
+        omega_n = tdot(t, s_vec) / torch.where(tt > tb, tt, tb)
+        alpha_n = torch.where(live, alpha_n, 0.0)
+        omega_n = torch.where(live, omega_n, 0.0)
+        x = tree.tmap(lambda xi, ph, sh: xi + alpha_n * ph + omega_n * sh,
+                      x, phat, shat)
+        r_new = taxpy(-omega_n, t, s_vec)
+        # keep the pre-step residual when frozen (s and t still carry
+        # rounding noise)
+        r = tree.tmap(lambda rn, ro: torch.where(live, rn, ro), r_new, r)
+        rho, alpha, omega = rho_new, alpha_n, omega_n
+    return x
+
 
 def jacobi_steps(matvec: Callable, dinv, r0, n_steps=10, omega=0.6666667):
     """delta = k steps of damped Jacobi on A delta = r0, delta0 = 0.

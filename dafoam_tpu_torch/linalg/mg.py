@@ -1,6 +1,6 @@
 """Geometric (Galerkin) multigrid on the dense-DIA grid form.
 
-Port of ``dafoam_tpu.linalg.mg`` up to ``vcycle``: on meshes whose
+Port of ``dafoam_tpu.linalg.mg``: on meshes whose
 dense-DIA layout is logically a 2-D structured grid (band offsets (1, L),
 or the periodic O-mesh triple (1, L-1, L)) the operator is re-expressed as
 five (nr, L) coefficient planes and coarsened 2x2 by piecewise-constant
@@ -8,8 +8,8 @@ Galerkin aggregation. The smoother is alternating-direction exact line
 solves (batched PCR, ``linalg/tridiag.py``). Everything is LINEAR in the
 right-hand side with matrix-only coefficients, so a V-cycle is a smooth
 approximate inverse for the fixed-point adjoint's step map
-(``fvsolve.solve_fixed``, smoother "mg"). ``mg_solver`` and
-``transpose_grid`` (the primal's ``pc="mg"``) are not ported yet.
+(``fvsolve.solve_fixed``, smoother "mg") and a Krylov preconditioner
+(``fvsolve.solve``, ``pc="mg"``).
 """
 
 from __future__ import annotations
@@ -224,3 +224,24 @@ def _vcycle_rec(levels, k, b, pre, post, coarse_sweeps, omega):
     ec = _vcycle_rec(levels, k + 1, rc, pre, post, coarse_sweeps, omega)
     z = z + omega * prolong(ec, op.D.shape)
     return smooth(op, z, b, sweeps=post)
+
+
+def mg_solver(m, topo, pre=1, post=1, min_cells: int = 64, omega=1.0):
+    """Approximate inverse r -> z ~= M^-1 r by one V-cycle, or None when the
+    mesh has no grid form. Like the ADI sweep, the V-cycle is NONSYMMETRIC
+    (line smoothers do not commute with A): pair it with BiCGStab/FGMRES,
+    not CG."""
+    h = build_hierarchy(m, topo, min_cells=min_cells)
+    if h is None:
+        return None
+    return lambda r: vcycle(h, r, pre=pre, post=post, omega=omega)
+
+
+def transpose_grid(op: GridOp) -> GridOp:
+    """GridOp of A^T: the coupled coefficient planes swap and shift."""
+    Wup = torch.roll(op.Wdn, -1, dims=1) if op.periodic else \
+        _shift1(op.Wdn, -1)
+    Wdn = torch.roll(op.Wup, 1, dims=1) if op.periodic else \
+        _shift1(op.Wup, 1)
+    return GridOp(op.D, Wup, Wdn, _shift0(op.Rdn, -1), _shift0(op.Rup, 1),
+                  op.periodic)

@@ -1,6 +1,10 @@
-"""Turbulence models ported so far, and the run-time registry."""
+"""Turbulence models and the run-time registry (port of
+``dafoam_tpu.models``)."""
 
 from dafoam_tpu_torch.models.base import Laminar, TurbulenceModel
+from dafoam_tpu_torch.models.komega_sst import KOmegaSST
+from dafoam_tpu_torch.models.komega_sst_lm import KOmegaSSTLM
+from dafoam_tpu_torch.models.ktwoeq import KEpsilon, KOmega
 from dafoam_tpu_torch.models.spalart_allmaras import (SpalartAllmaras,
                                                        SpalartAllmarasFv3)
 
@@ -9,16 +13,14 @@ _TURB_REGISTRY = {
     "laminar": Laminar,
     "SpalartAllmaras": SpalartAllmaras,
     "SpalartAllmarasFv3": SpalartAllmarasFv3,
+    "kOmegaSST": KOmegaSST,
+    "kOmegaSSTLM": KOmegaSSTLM,
+    "kEpsilon": KEpsilon,
+    "kOmega": KOmega,
 }
-# models of dafoam_tpu that the port does not have yet (ROADMAP.md P7)
-_NOT_PORTED = ("kOmegaSST", "kOmegaSSTLM", "kEpsilon", "kOmega")
 
 
 def turbulence_model_class(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"turbulence model {name!r} is not ported yet "
-            "(ROADMAP.md queue 1, P7)")
     try:
         return _TURB_REGISTRY[name]
     except KeyError:
@@ -33,5 +35,5 @@ def make_turbulence_model(name: str, *args, **kw):
 
 
 __all__ = ["TurbulenceModel", "Laminar", "SpalartAllmaras",
-           "SpalartAllmarasFv3", "make_turbulence_model",
-           "turbulence_model_class"]
+           "SpalartAllmarasFv3", "KOmegaSST", "KOmegaSSTLM", "KEpsilon",
+           "KOmega", "make_turbulence_model", "turbulence_model_class"]

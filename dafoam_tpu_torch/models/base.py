@@ -5,6 +5,8 @@ Model states (nuTilda, ...) are ordinary extra keys of the state.
 
 Each model provides:
   nut(state, inputs, geom)        eddy viscosity from model states
+  nut_with_grad(..., gradU)       the same given the velocity gradient (the
+                                  strain-limited SST form overrides it)
   divdevreff(U, ...)              the momentum-equation stress term
                                   -div(nuEff grad U) - div(nuEff dev2(gradU^T))
   correct(...)                    one primal update of the model states
@@ -14,11 +16,14 @@ Each model provides:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from dafoam_tpu_torch.linalg import fvsolve
+from dafoam_tpu_torch.models.wallfunctions import spalding_nut_wall
 from dafoam_tpu_torch.ops import bc, fvc, fvm
 from dafoam_tpu_torch.ops import fvmatrix as fvx
-from dafoam_tpu_torch.ops.core import boundary_gather, float_tensor
+from dafoam_tpu_torch.ops.core import boundary_gather, float_tensor, maximum
 
 
 class TurbulenceModel:
@@ -28,7 +33,7 @@ class TurbulenceModel:
         self.topo = topo
         self.option = option
         self.wall_dist = wall_dist  # (nc,) frozen (meshWaveFrozen)
-        self.last_solve_info = None  # SolveInfo of the last correct()
+        self.last_solve_info = {}    # {model state: SolveInfo}, correct()
 
     # -- eddy viscosity ------------------------------------------------
     def nut(self, state, inputs, geom):
@@ -37,27 +42,51 @@ class TurbulenceModel:
     def nu(self, inputs):
         return inputs["params"]["nu"]
 
+    def nu_eff_faces(self, state, inputs, geom):
+        """(nu + nut on every face, nu + nut per cell, nu + nut per
+        boundary face)."""
+        nu = self.nu(inputs)
+        nu_eff = self.nut(state, inputs, geom) + nu
+        nu_eff_b = self.nut_boundary(state, inputs, geom) + nu
+        return (fvc.interpolate(geom, self.topo, nu_eff, nu_eff_b), nu_eff,
+                nu_eff_b)
+
     def setup_wall_functions(self, full_bc_spec):
-        """Spalding wall functions (nut BC nutUSpaldingWallFunction) are
-        not part of the ported slice."""
+        """Spalding wall functions on the patches whose ``nut`` BC type is
+        nutUSpaldingWallFunction (reference nutUSpaldingWallFunctionDF)."""
+        spec = full_bc_spec.get("nut", {})
+        ni = self.topo.n_internal
+        m = np.zeros((self.topo.n_faces - ni,))
         for p in self.topo.patches:
-            spec = full_bc_spec.get("nut", {}).get(p.name, {})
-            if spec.get("type") == "nutUSpaldingWallFunction":
-                raise NotImplementedError(
-                    "nutUSpaldingWallFunction is not ported yet "
-                    "(ROADMAP.md queue 1, P7: models/wallfunctions.py)")
+            if spec.get(p.name, {}).get("type") == \
+                    "nutUSpaldingWallFunction":
+                m[p.start - ni:p.start - ni + p.size] = 1.0
+        self._wf_mask = m if m.any() else None
 
     def nut_boundary(self, state, inputs, geom):
-        """Boundary nut: owner value off-wall, zero at walls (low-Re)."""
+        """Boundary nut: owner value off-wall; at walls zero (low-Re) or,
+        where configured, Spalding's wall-function value."""
+        topo = self.topo
         nut = self.nut(state, inputs, geom)
-        return boundary_gather(nut, self.topo) * (1.0 - self._wall_mask(geom))
+        out = boundary_gather(nut, topo) * (1.0 - self._wall_mask(geom))
+        wf = getattr(self, "_wf_mask", None)
+        if wf is not None and "U" in state:
+            ni = topo.n_internal
+            nhat = geom.sf[ni:] / maximum(geom.magsf[ni:], 1e-36)[:, None]
+            Uo = boundary_gather(state["U"], topo)
+            Ut = Uo - (Uo * nhat).sum(dim=-1)[:, None] * nhat
+            mag_ut = torch.sqrt(maximum((Ut * Ut).sum(dim=-1), 1e-36))
+            y = 1.0 / maximum(geom.nonorth_dc[ni:], 1e-36)
+            nut_wf = spalding_nut_wall(mag_ut, y, self.nu(inputs))
+            mask = torch.as_tensor(wf, dtype=out.dtype, device=out.device)
+            out = torch.where(mask > 0.5, nut_wf, out)
+        return out
 
     def _wall_mask(self, geom):
         topo = self.topo
         ni = topo.n_internal
 
         def make():
-            import numpy as np
             m = np.zeros((topo.n_faces - ni,))
             for p in topo.patches:
                 if p.kind == "wall":
@@ -68,6 +97,10 @@ class TurbulenceModel:
                             geom.vol.dtype, make)
 
     # -- momentum stress term -----------------------------------------
+    def nut_with_grad(self, state, inputs, geom, gradU):
+        """nut given the velocity gradient (the default ignores gradU)."""
+        return self.nut(state, inputs, geom)
+
     def divdevreff(self, U, state, inputs, geom, U_bco) -> fvx.FvMatrix:
         """-laplacian(nuEff, U) - div(nuEff dev2(T(grad U))) as an FvMatrix
         (implicit laplacian + explicit transpose/deviatoric part), matching
@@ -76,7 +109,7 @@ class TurbulenceModel:
         U_b = bc.boundary_value(U_bco, U, topo)
         gradU = fvc.grad(geom, topo, U, U_b)           # (nc,3,3) d_i U_j
         nu = self.nu(inputs)
-        nu_eff = self.nut(state, inputs, geom) + nu
+        nu_eff = self.nut_with_grad(state, inputs, geom, gradU) + nu
         nu_eff_b = self.nut_boundary(state, inputs, geom) + nu
         nu_eff_f = fvc.interpolate(geom, topo, nu_eff, nu_eff_b)
         M = -fvm.laplacian(geom, topo, nu_eff_f, U, U_bco, grad_psi=gradU)
@@ -116,8 +149,17 @@ class TurbulenceModel:
         return {}
 
     def correct(self, state, inputs, geom, phi, **kw):
-        """One primal iteration of the model equations; returns new state."""
+        """One primal iteration of the model equations; returns the new
+        state and leaves {model state: SolveInfo} in last_solve_info."""
         return state
+
+    def _solve(self, name, M, state, rel_tol, max_iters):
+        """The model equation ``name``'s inner BiCGStab solve (logged in
+        last_solve_info)."""
+        sol, self.last_solve_info[name] = fvsolve.solve(
+            M, state[name], self.topo, symmetric=False, rel_tol=rel_tol,
+            max_iters=max_iters)
+        return sol
 
 
 class Laminar(TurbulenceModel):

@@ -11,7 +11,6 @@ import math
 
 import torch
 
-from dafoam_tpu_torch.linalg import fvsolve
 from dafoam_tpu_torch.models.base import TurbulenceModel
 from dafoam_tpu_torch.ops import bc, fvc, fvm
 from dafoam_tpu_torch.ops import fvmatrix as fvx
@@ -135,9 +134,7 @@ class SpalartAllmaras(TurbulenceModel):
                 rel_tol=0.1, max_iters=100, relax=0.7):
         M = self.equations(state, inputs, geom, phi, gradU,
                            relax)["nuTilda"]
-        sol, self.last_solve_info = fvsolve.solve(
-            M, state["nuTilda"], self.topo, symmetric=False,
-            rel_tol=rel_tol, max_iters=max_iters)
+        sol = self._solve("nuTilda", M, state, rel_tol, max_iters)
         bounds = self.option["primalVarBounds"]
         sol = torch.clamp(sol, bounds["nuTildaMin"], bounds["nuTildaMax"])
         return dict(state, nuTilda=sol)

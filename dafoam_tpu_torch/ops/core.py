@@ -30,6 +30,25 @@ def abs_ad(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, -x)
 
 
+def maximum(x: torch.Tensor, c) -> torch.Tensor:
+    """max(x, c) for a constant c whose derivative at a tie is 1/2, as
+    ``jnp.maximum``'s (torch.clamp passes it whole): model states sit
+    exactly on their bounds after a clipped update."""
+    return torch.maximum(x, torch.as_tensor(c, dtype=x.dtype,
+                                            device=x.device))
+
+
+def minimum(x: torch.Tensor, c) -> torch.Tensor:
+    """min(x, c), with ``maximum``'s tie rule."""
+    return torch.minimum(x, torch.as_tensor(c, dtype=x.dtype,
+                                            device=x.device))
+
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``: minimum(maximum(x, lo), hi)."""
+    return minimum(maximum(x, lo), hi)
+
+
 def _cache(topo) -> dict:
     cache = getattr(topo, "_torch_cache", None)
     if cache is None:

@@ -113,7 +113,7 @@ class DASolverBase:
         raise NotImplementedError
 
     def init_state(self) -> dict:
-        st = self.layout.zeros(self.dtype, self.device)
+        st = self.layout.zeros(self.dtype, device=self.device)
         for name, val in self.option.get("initialFields", {}).items():
             if name in st:
                 st[name] = torch.broadcast_to(

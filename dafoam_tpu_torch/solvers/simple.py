@@ -1,17 +1,23 @@
-"""Steady incompressible SIMPLE solver with turbulence (port of the primal
-half of ``dafoam_tpu.solvers.simple``).
+"""Steady incompressible SIMPLE solver with turbulence (port of
+``dafoam_tpu.solvers.simple``).
 
 Reference: DASimpleFoam (src/adjoint/DASolver/DASimpleFoam/: UEqnSimple.H
 momentum predictor, pEqnSimple.H pressure projection). One outer SIMPLE
-iteration runs three solves: a BiCGStab momentum solve (component-major,
-K2), a Jacobi-CG pressure solve (K1) and, with Spalart–Allmaras, a
-BiCGStab nuTilda solve (K1).
+iteration runs a BiCGStab momentum solve (component-major, K2; skipped
+with momentumPredictor off), a pressure solve (K1; Jacobi-CG, or
+BiCGStab with the line or multigrid PC) and one BiCGStab solve per
+turbulence-model state (K1). SIMPLEC (simple.consistent), an all-Neumann
+pressure (adjustPhi and a reference cell) and user U/p bounds follow
+``dafoam_tpu``.
 
 The outer loop is Python: each iteration reads the max normalized
-residual and the state validity on the host.
+residual and the state validity on the host (and, with
+primalFuncStdTol, the window statistics of the tracked functions).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -24,10 +30,35 @@ from dafoam_tpu_torch.models import (make_turbulence_model,
                                      turbulence_model_class)
 from dafoam_tpu_torch.ops import bc, fvc, fvm
 from dafoam_tpu_torch.ops import fvmatrix as fvx
-from dafoam_tpu_torch.ops.core import boundary_gather
+from dafoam_tpu_torch.ops.core import boundary_gather, maximum, minimum
 from dafoam_tpu_torch.option import DAOption
 from dafoam_tpu_torch.solvers.base import DASolverBase, PrimalInfo
 from dafoam_tpu_torch.states import StateInfo
+
+
+def _window_stats(vals, n, frac):
+    """(relative std, |relative least-squares slope|) of the last
+    max(2, round(frac n)) of the first n entries of ``vals`` (reference
+    DASolver calcFuncStd/calcFuncSlope), as masked sums over the whole
+    row like dafoam_tpu; inf with fewer than two samples."""
+    li = n - 1
+    window = max(2, int(np.round(frac * (li + 1.0))))
+    start = max(0, li - window + 1)
+    idx = torch.arange(vals.shape[0], device=vals.device)
+    m = ((idx >= start) & (idx <= li)).to(vals.dtype)
+    cnt = torch.sum(m)
+    mean = torch.sum(vals * m) / (cnt + 1e-16)
+    var = torch.sum(m * (vals - mean) ** 2) / (cnt + 1e-16)
+    std = torch.sqrt(var) / torch.abs(mean + 1e-16)
+    x = (idx - start).to(vals.dtype) * m
+    xmean = torch.sum(x * m) / (cnt + 1e-16)
+    dx = (x - xmean) * m
+    sxy = torch.sum(dx * (vals - mean) * m)
+    sxx = torch.sum(dx * dx)
+    slope = (sxy / (sxx + 1e-16)) / torch.abs(mean + 1e-16)
+    big = torch.full_like(std, math.inf)
+    return (torch.where(cnt >= 2, std, big),
+            torch.abs(torch.where(cnt >= 2, slope, big)))
 
 
 def _not_ported(what, slice_name):
@@ -50,13 +81,6 @@ class DASimpleFoam(DASolverBase):
             raise _not_ported("fvSource", "P8")
         if opt.get("regressionModel", {}).get("active"):
             raise _not_ported("regressionModel", "P8")
-        if opt["simple"]["consistent"]:
-            raise _not_ported("SIMPLEC (simple.consistent)", "P4")
-        if not opt["simple"]["momentumPredictor"]:
-            raise _not_ported("momentumPredictor off", "P4")
-        if isinstance(option, dict) and "primalVarBounds" in option:
-            # dafoam_tpu clips U and p to user bounds given this way
-            raise _not_ported("user primalVarBounds on U/p", "P4")
         self.state_info = StateInfo(vol_vector=("U",), vol_scalar=("p",),
                                     model=tuple(model_states),
                                     surface_scalar=("phi",))
@@ -74,10 +98,9 @@ class DASimpleFoam(DASolverBase):
         self.div_u_scheme = self.option["divSchemes"].get(
             "div(phi,U)", "upwind")
         # an all-Neumann pressure needs adjustPhi and a reference cell
-        if not any(s["type"] == "fixedValue"
-                   for s in self.bc_spec.get("p", {}).values()):
-            raise _not_ported("a pressure without a fixedValue patch "
-                              "(adjustPhi, pRefCell)", "P4")
+        self.p_needs_ref = not any(
+            s["type"] == "fixedValue"
+            for s in self.bc_spec.get("p", {}).values())
         # which boundary faces have a fixed (non-adjustable) velocity
         ni = topo.n_internal
         fixed = np.zeros((topo.n_faces - ni,))
@@ -87,6 +110,10 @@ class DASimpleFoam(DASolverBase):
                     or p.kind == "empty":
                 fixed[p.start - ni:p.start - ni + p.size] = 1.0
         self._fixed_flux_b = self._tensor(fixed)
+        # U/p bounds apply only when the caller's own option dict gives
+        # primalVarBounds (the defaults carry bounds for every field)
+        self._user_bounds = (option.get("primalVarBounds", {})
+                             if isinstance(option, dict) else {})
         self.turb.setup_wall_functions(self.bc_spec)
         # Krylov work of the inner solves: {equation: [solves, iterations]}
         self.solve_stats = {}
@@ -127,9 +154,10 @@ class DASimpleFoam(DASolverBase):
         return fvx.relax(M, U, alpha, self.topo), U_bco
 
     def _projection(self, state, inputs, geom, UEqn, U_bco, U_pred):
-        """rAU, HbyA, phiHbyA and the pressure matrix (SIMPLE; the
-        SIMPLEC and pressure-reference branches of dafoam_tpu are not
-        ported)."""
+        """rAU, its face values, HbyA, phiHbyA and the pressure matrix. With
+        SIMPLEC the first two are rAtU = 1/(1/rAU - H1) (reference
+        simple.consistent()); with an all-Neumann pressure phiHbyA is
+        adjusted (adjustPhi) and p is pinned in cell 0 to 0."""
         topo = self.topo
         p, phi = state["p"], state["phi"]
         p_bco = self._bco_p(p, inputs, geom, phi)
@@ -146,12 +174,56 @@ class DASimpleFoam(DASolverBase):
         else:
             HbyA_b = HbyA_own
         phiHbyA = fvc.flux(geom, topo, HbyA, HbyA_b)
+        if self.p_needs_ref:
+            phiHbyA = self._adjust_phi(phiHbyA)
+        if self.option["simple"]["consistent"]:
+            # SIMPLEC: phiHbyA += interp(rAtU - rAU) snGrad(p) |Sf|,
+            # HbyA -= (rAU - rAtU) grad(p)
+            rAtU = 1.0 / (1.0 / rAU - fvx.H1(UEqn, geom, topo))
+            drA = rAtU - rAU
+            drA_f = fvc.interpolate(geom, topo, drA,
+                                    boundary_gather(drA, topo))
+            snp = fvc.snGrad(geom, topo, p, bc.boundary_sngrad(p_bco, p,
+                                                               topo))
+            phiHbyA = phiHbyA + drA_f * snp * geom.magsf
+            gradp = fvc.grad(geom, topo, p, bc.boundary_value(p_bco, p, topo))
+            HbyA = HbyA + drA[:, None] * gradp
+            rAU = rAtU
 
         rAU_f = fvc.interpolate(geom, topo, rAU, boundary_gather(rAU, topo))
         pM = fvm.laplacian(geom, topo, rAU_f, p, p_bco)
         # pEqn: laplacian(rAU, p) == div(phiHbyA)
         pM = pM.add_source(fvc.div_surface(geom, topo, phiHbyA) * geom.vol)
+        if self.p_needs_ref:
+            pM = fvx.set_reference(pM, 0, 0.0)
         return rAU, rAU_f, HbyA, phiHbyA, pM, p_bco
+
+    def _adjust_phi(self, phiHbyA):
+        """Global mass conservation for an all-Neumann pressure (OpenFOAM
+        adjustPhi, in the primal and the residual alike): the outflow of
+        the adjustable boundary faces is scaled to balance the inflow."""
+        ni = self.topo.n_internal
+        phib = phiHbyA[ni:]
+        fixed = self._fixed_flux_b
+        adj = 1.0 - fixed
+        outflow = (phib > 0.0).to(phib.dtype)
+        mass_in = -torch.sum(phib * (1.0 - outflow))
+        fixed_out = torch.sum(phib * outflow * fixed)
+        adj_out = torch.sum(phib * outflow * adj)
+        corr = (mass_in - fixed_out) / torch.where(
+            torch.abs(adj_out) > 1e-36, adj_out, 1.0)
+        phib = torch.where((outflow > 0.5) & (adj > 0.5), phib * corr, phib)
+        return torch.cat([phiHbyA[:ni], phib])
+
+    def _bound(self, name, v):
+        """v clipped to the caller's primalVarBounds ``name``Min/Max."""
+        lo = self._user_bounds.get(name + "Min")
+        hi = self._user_bounds.get(name + "Max")
+        if lo is None and hi is None:
+            return v
+        if lo is not None:
+            v = maximum(v, lo)
+        return v if hi is None else minimum(v, hi)
 
     def equations(self, state, inputs, geom=None):
         """The relaxed momentum, pressure and model matrices as the
@@ -263,10 +335,14 @@ class DASimpleFoam(DASolverBase):
         rhs_U = -gradp * geom.vol[:, None]
         res_U = fvsolve.initial_residual_norm(UEqn, U, topo, rhs=rhs_U)
 
-        U_pred, info = fvsolve.solve(
-            UEqn, U, topo, symmetric=False, rel_tol=lin["uRelTol"],
-            max_iters=lin["uMaxIters"], rhs=rhs_U)
-        self._log_solve("U", info)
+        if opt["simple"]["momentumPredictor"]:
+            U_pred, info = fvsolve.solve(
+                UEqn, U, topo, symmetric=False, rel_tol=lin["uRelTol"],
+                max_iters=lin["uMaxIters"], rhs=rhs_U)
+            self._log_solve("U", info)
+            U_pred = self._bound("U", U_pred)
+        else:
+            U_pred = U
 
         rAU, rAU_f, HbyA, phiHbyA, pM, p_bco = self._projection(
             state, inputs, geom, UEqn, U_bco, U_pred)
@@ -279,11 +355,11 @@ class DASimpleFoam(DASolverBase):
         phi_new = phiHbyA - fvm.laplacian_flux(geom, topo, rAU_f, p_new,
                                                p_bco)
         # explicit pressure relaxation, then momentum corrector
-        p_rel = p + alpha_p * (p_new - p)
+        p_rel = self._bound("p", p + alpha_p * (p_new - p))
         p_bco2 = self._bco_p(p_rel, inputs, geom, phi_new)
         p_b2 = bc.boundary_value(p_bco2, p_rel, topo)
         gradp2 = fvc.grad(geom, topo, p_rel, p_b2)
-        U_new = HbyA - rAU[:, None] * gradp2
+        U_new = self._bound("U", HbyA - rAU[:, None] * gradp2)
 
         new_state = dict(state, U=U_new, p=p_rel, phi=phi_new)
 
@@ -296,38 +372,80 @@ class DASimpleFoam(DASolverBase):
                 new_state, inputs, geom, phi_new, gradU=gradU,
                 rel_tol=lin["turbRelTol"], max_iters=lin["turbMaxIters"],
                 relax=relax_t)
-            for name in self.turb.model_states:
-                self._log_solve(name, self.turb.last_solve_info)
+            for name, info in self.turb.last_solve_info.items():
+                self._log_solve(name, info)
 
         return new_state, torch.maximum(res_U, res_p)
 
     def solve_primal(self, state, inputs):
         """SIMPLE iterations until max_res <= primalMinResTol (after at
         least primalMinIters, at most primalMaxIters) or the state turns
-        invalid."""
+        invalid; with primalFuncStdTol, also until the tracked functions'
+        trailing-window relative std and slope both fall under their
+        tolerances (reference DASolver::loop). useMeanStates replaces the
+        final state by the running mean over the iterations from
+        meanStateStart x primalMaxIters on (phi keeps its final value)."""
         opt = self.option
-        if opt["useMeanStates"]:
-            raise _not_ported("useMeanStates", "P6")
-        fscfg = opt["primalFuncStdTol"]
-        if float(fscfg.get("stdTol", -1.0)) > 0 and any(
-                n in opt["function"] for n in fscfg.get("funcNames", [])):
-            raise _not_ported("primalFuncStdTol tracking", "P6")
         geom = self.geometry(inputs)
         tol = opt["primalMinResTol"]
-        max_it = opt["primalMaxIters"]
+        max_it = int(opt["primalMaxIters"])
         min_it = opt["primalMinIters"]
         print_int = int(opt["printInterval"])
         do_print = bool(opt.get("printToScreen", False))
 
-        st, it, res = state, 0, float("inf")
-        while (it < min_it or res > tol) and it < max_it \
+        use_mean = bool(opt["useMeanStates"])
+        start_it = int(float(opt.get("meanStateStart", 0.5)) * max_it)
+        mean = {k: torch.zeros_like(v) for k, v in state.items()} \
+            if use_mean else None
+
+        fscfg = opt["primalFuncStdTol"]
+        std_tol = float(fscfg.get("stdTol", -1.0))
+        slope_tol = float(fscfg.get("slopeTol", -1.0))
+        if std_tol > 0 and slope_tol <= 0:
+            slope_tol = std_tol      # reference DASolver.C:105
+        func_names = [n for n in fscfg.get("funcNames", [])
+                      if n in opt["function"]]
+        track = std_tol > 0 and len(func_names) > 0
+        frac = float(fscfg.get("nStepsFrac", 0.2))
+        fvals = state["p"].new_zeros((len(func_names), max_it))
+        fstd = fslope = math.inf
+
+        def func_conv():
+            return fstd < std_tol and fslope < slope_tol
+
+        def unconverged():
+            if track:
+                return not (res <= tol or func_conv())
+            return res > tol
+
+        st, it, res = state, 0, math.inf
+        while (it < min_it or unconverged()) and it < max_it \
                 and self.states_valid(st):
             st, res_t = self.primal_step(st, inputs, geom)
+            if use_mean and it >= start_it:
+                cnt = it + 1 - start_it
+                mean = {k: m + (st[k] - m) / cnt if k != "phi" else m
+                        for k, m in mean.items()}
+            if track:
+                stats = []
+                for j, name in enumerate(func_names):
+                    fvals[j, it] = self.eval_function(name, st, inputs)
+                    stats.append(_window_stats(fvals[j], it + 1, frac))
+                stats = torch.stack([torch.stack(t) for t in stats])
+                fstd, fslope = (float(v) for v in stats.max(dim=0).values)
             res = float(res_t)
             it += 1
             if do_print and it % print_int == 0:
-                print(f"iter {it}: maxRes = {res:.6e}")
+                extra = f" funcStd={fstd:.6e} funcSlope={fslope:.6e}" \
+                    if track else ""
+                print(f"iter {it}: maxRes = {res:.6e}{extra}")
+        if use_mean and it > start_it:
+            st = {k: mean[k] if k != "phi" else v for k, v in st.items()}
         ok = self.states_valid(st)
+        if track:
+            # func-std mode never fails on the residual (DASolver.C:2730)
+            conv = (res <= tol or func_conv()) and ok
+            return st, PrimalInfo(it, res, conv, not ok)
         # checkPrimalFailure parity (reference DASolver.C:2721): fail when
         # the achieved residual misses primalMinResTol*TolDiff
         failed = not ok

@@ -69,7 +69,7 @@ class StateLayout:
             out[name] = chunk
         return out
 
-    def zeros(self, dtype=torch.float64, device=None) -> dict:
+    def zeros(self, dtype, *, device) -> dict:
         out = {}
         for name, kind in self.info.ordered:
             if kind == "vector":

@@ -379,9 +379,7 @@ def test_residual_form_totals_meet_golden(converged):
 
 
 @pytest.mark.parametrize("key,value,error", [
-    ("fpRelaxEquations", {"U": 0.9}, ValueError),
-    ("fpRemat", True, NotImplementedError),
-    ("fpInnerSmoother", "krylov", NotImplementedError)])
+    ("fpRelaxEquations", {"U": 0.9}, ValueError)])
 def test_unported_adjoint_options_raise(converged, key, value, error):
     s, inputs, state, _ = converged
     path = key if key == "adjEqnSolMethod" else "adjEqnOption." + key
