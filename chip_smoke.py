@@ -83,16 +83,38 @@ case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
    K1/K2 in the primal and every K3 kernel in the adjoint, no plain call;
 8b. 20 SIMPLE iterations at 512x512 for each of kEpsilon, kOmega,
    kOmegaSSTLM and Spalart-Allmaras with Spalding wall functions: finite,
-   K1/K2 launched, no plain call.
+   K1/K2 launched, no plain call;
+4f. golden scalar_transport (tests/test_golden.py:_case_scalar_transport,
+   8x6 box, DAScalarTransportFoam, segregated PC), 4g. golden
+   heat_radiation (_case_heat_radiation, 10x6 box, DAHeatTransferFoam
+   with P1 radiation, no PC) and 4h. golden rho_channel
+   (tests/test_rho_simple.py:channel, 16x8 DARhoSimpleFoam, segregated
+   PC), each in f64 on the dense layout: objectives at 1e-8 and totals at
+   1e-6 against tests/golden/values.json; K1 and K3a (4f), K1 (4g), K1,
+   K2 and K3a (4h) launched, no plain version; they run after 4e;
+9. compressible full width: DARhoSimpleFoam + Spalart-Allmaras on the
+   512x512 O-mesh (f32, dense) at Mach 0.5 (T 300 K, p 101325 Pa) and
+   Re_c 1000, with relaxationFactors.fields.rho RHO_RELAX: ITERS SIMPLE
+   iterations (finite, valid, max_res falls, CD finite; ms per
+   iteration, the rho and Mach ranges), then one 60-iteration FGMRES
+   cycle of the residual-form adjoint (segregated PC) and the totals
+   (finite; ms per iteration, resid0 -> resid, peak memory, launches per
+   iteration); K1/K2 in the primal, K3a and K3a-multi in the adjoint;
+9b. 20 DARhoSimpleCFoam (transonic SIMPLEC) iterations from phase 9's
+   state without the subsonic warm start: the p equation is non-symmetric
+   and must go to BiCGStab through K1; then one vjp of the normalized
+   residuals (finite). Phases 9 and 9b run after 8b.
 
 ``--profile`` adds a torch.profiler table of one more SIMPLE iteration, of
 one (I - dG^T) product, of one residual-form iteration (a residual vjp
-and one segregated PC application) and of one SIMPLE iteration with the
-multigrid pressure PC. The last line of standard output is
+and one segregated PC application), of one SIMPLE iteration with the
+multigrid pressure PC and of one compressible SIMPLE iteration (phase
+9's case). The last line of standard output is
 one JSON object with "ok" and the device; the line before it repeats the
 card's name and power limit, and the one before that lists every kernel
 with its launches on the full-width paths (phases 5, 5b, 5c, 6, 6b, 6c,
-6d, 8 and 8b, each counted from zero; "launches_by_path" splits them),
+6d, 8, 8b, 9 and 9b, each counted from zero; "launches_by_path" splits
+them),
 its error against the plain version, its times and its bound. The script
 prints its total wall seconds before those lines.
 """
@@ -278,6 +300,142 @@ def cavity_options():
                          "gmresMaxIters": 3000},
         "normalizeStates": {"U": 1.0, "p": 0.5, "phi": 1.0},
         "meshFaceLayout": "diaDense"}
+
+
+def scalar_transport_options():
+    """tests/test_golden.py:_case_scalar_transport on the dense layout."""
+    u = [1.0, 0.2, 0.0]
+    return {
+        "solverName": "DAScalarTransportFoam", "ddtScheme": "steadyState",
+        "transportProperties": {"DT": 0.05},
+        "boundaryConditions": {
+            "T": {"xmin": {"type": "fixedValue", "value": 1.0},
+                  "xmax": {"type": "zeroGradient"},
+                  "ymin": {"type": "fixedValue", "value": 0.0},
+                  "ymax": {"type": "zeroGradient"}},
+            "U": {"xmin": {"type": "fixedValue", "value": u},
+                  "xmax": {"type": "zeroGradient"},
+                  "ymin": {"type": "fixedValue", "value": u},
+                  "ymax": {"type": "zeroGradient"}}},
+        "initialFields": {"T": 0.0},
+        "function": {"TMean": {"type": "patchMean", "patches": ["xmax"],
+                               "varName": "T", "scale": 1.0}},
+        "normalizeStates": {"T": 1.0},
+        "adjEqnOption": {"gmresRelTol": 1e-12, "gmresRestart": 60},
+        "meshFaceLayout": "diaDense"}
+
+
+def heat_radiation_options():
+    """tests/test_golden.py:_case_heat_radiation on the dense layout."""
+    return {
+        "solverName": "DAHeatTransferFoam",
+        "transportProperties": {"kappa": 10.0},
+        "boundaryConditions": {
+            "T": {"xmin": {"type": "fixedValue", "value": 1000.0},
+                  "xmax": {"type": "fixedValue", "value": 400.0},
+                  "ymin": {"type": "zeroGradient"},
+                  "ymax": {"type": "zeroGradient"}},
+            "G": {k: {"type": "zeroGradient"}
+                  for k in ("xmin", "xmax", "ymin", "ymax")}},
+        "initialFields": {"T": 700.0, "G": 4.0 * 5.67e-8 * 700.0 ** 4},
+        "primalMinResTol": 1e-7, "primalMaxIters": 200,
+        "function": {"Tm": {"type": "variableVolSum", "varName": "T",
+                            "scale": 1.0, "divByTotalVol": 1}},
+        "normalizeStates": {"T": 700.0, "G": 5e4},
+        "adjEqnOption": {"gmresRelTol": 1e-10, "gmresRestart": 200,
+                         "gmresMaxIters": 1500, "pcType": "none"},
+        "meshFaceLayout": "diaDense"}
+
+
+def rho_channel_options():
+    """tests/test_rho_simple.py:channel (golden rho_channel), dense."""
+    uin, zero = [50.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+    zg = {"type": "zeroGradient"}
+
+    def fv(v):
+        return {"type": "fixedValue", "value": v}
+
+    return {
+        "solverName": "DARhoSimpleFoam", "turbulenceModel": "None",
+        "transportProperties": {"mu": 1.8e-5, "Cp": 1004.5, "R": 287.0,
+                                "Pr": 0.7},
+        "boundaryConditions": {
+            "U": {"xmin": fv(uin), "xmax": zg, "ymin": fv(zero),
+                  "ymax": fv(zero)},
+            "p": {"xmin": zg, "xmax": fv(101325.0), "ymin": zg, "ymax": zg},
+            "T": {"xmin": fv(300.0), "xmax": zg, "ymin": fv(350.0),
+                  "ymax": fv(350.0)}},
+        "initialFields": {"U": uin, "p": 101325.0, "T": 300.0},
+        "primalMinResTol": 5e-9, "primalMaxIters": 1000,
+        "primalVarBounds": {"UMin": -1000.0, "UMax": 1000.0,
+                            "pMin": 20000.0, "pMax": 500000.0,
+                            "TMin": 100.0, "TMax": 1000.0},
+        "relaxationFactors": {"fields": {"p": 0.3},
+                              "equations": {"U": 0.7, "T": 0.7}},
+        "function": {
+            "Tout": {"type": "patchMean", "patches": ["xmax"],
+                     "varName": "T", "scale": 1.0},
+            "mdot": {"type": "massFlowRate", "patches": ["xmax"],
+                     "scale": 1.0}},
+        "adjEqnOption": {"gmresRelTol": 1e-10, "gmresRestart": 300,
+                         "gmresMaxIters": 3000, "pcType": "segregated"},
+        "normalizeStates": {"U": 50.0, "p": 101325.0, "T": 300.0,
+                            "phi": 1.0},
+        "meshFaceLayout": "diaDense"}
+
+
+# the compressible full-width case (phase 9): Mach 0.5 at the flagship's
+# Reynolds number on the unit chord
+T_INF, P_INF, R_GAS, GAMMA = 300.0, 101325.0, 287.0, 1.4
+U_INF = 0.5 * math.sqrt(GAMMA * R_GAS * T_INF)
+RHO_INF = P_INF / (R_GAS * T_INF)
+MU_INF = RHO_INF * U_INF * 1.0 / 1000.0
+NU_INF = MU_INF / RHO_INF
+# relaxationFactors.fields.rho: without it (and at 0.5, 0.1) the CPU
+# rehearsal of this case diverges (64x64 to 512x512); see PERF.md
+RHO_RELAX = 0.005
+
+
+def rho_options(**over):
+    """DARhoSimpleFoam + SA on the flagship O-mesh at Mach 0.5, Re_c 1000,
+    with bench_options()'s inner solves and ITERS SIMPLE iterations."""
+    u = [U_INF, 0.0, 0.0]
+    opts = {
+        "solverName": "DARhoSimpleFoam",
+        "turbulenceModel": "SpalartAllmaras",
+        "transportProperties": {"mu": MU_INF, "nu": NU_INF, "Cp": 1004.5,
+                                "R": R_GAS, "Pr": 0.7, "Prt": 0.9},
+        "boundaryConditions": {
+            "U": {"far": {"type": "inletOutlet", "value": u},
+                  "wing": {"type": "fixedValue", "value": [0.0, 0.0, 0.0]}},
+            "p": {"far": {"type": "fixedValue", "value": P_INF},
+                  "wing": {"type": "zeroGradient"}},
+            "T": {"far": {"type": "inletOutlet", "value": T_INF},
+                  "wing": {"type": "zeroGradient"}},
+            "nuTilda": {"far": {"type": "inletOutlet", "value": 3 * NU_INF},
+                        "wing": {"type": "fixedValue", "value": 0.0}}},
+        "initialFields": {"U": u, "p": P_INF, "T": T_INF,
+                          "nuTilda": 3 * NU_INF},
+        "primalVarBounds": {"UMin": -1000.0, "UMax": 1000.0,
+                            "pMin": 20000.0, "pMax": 500000.0,
+                            "TMin": 100.0, "TMax": 1000.0},
+        "primalMinResTol": 0.0, "primalMinIters": ITERS,
+        "primalMaxIters": ITERS,
+        "primalLinearSolver": dict(bench_options()["primalLinearSolver"]),
+        "relaxationFactors": {"fields": {"p": 0.2, "rho": RHO_RELAX},
+                              "equations": {"U": 0.5, "T": 0.5,
+                                            "nuTilda": 0.5}},
+        "function": {"CD": {"type": "force", "patches": ["wing"],
+                            "directionMode": "fixedDirection",
+                            "direction": [1.0, 0.0, 0.0], "scale": 1.0}},
+        "adjEqnOption": {"pcType": "segregated", "gmresRestart": 60,
+                         "gmresMaxIters": 60, "gmresRelTol": 1e-12,
+                         "gmresAbsTol": 1e-30, "gmresDeflate": 0},
+        "normalizeStates": {"U": U_INF, "p": P_INF, "T": T_INF, "phi": 1.0,
+                            "nuTilda": 3 * NU_INF},
+        "meshFaceLayout": "diaDense"}
+    opts.update(over)
+    return opts
 
 
 KINF = 1.5 * (0.05 * 1.0) ** 2      # 5% turbulence intensity at |U_inf| 1
@@ -843,6 +1001,113 @@ def phase_golden_cavity(torch, dk, make_solver, box):
                  PRIMAL_KERNELS + ("dia_matvec_t", "dia_matvec_multi_t"))
 
 
+def _golden_want(name):
+    with open(os.path.join(HERE, "tests", "golden", "values.json")) as fh:
+        return json.load(fh)[name]
+
+
+def _hold_golden(tag, got, want):
+    """Objectives at rel 1e-8, totals (keys d...) at 1e-6; a summary."""
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+    for k, r in rel.items():
+        check(r <= (1e-6 if k.startswith("d") else 1e-8),
+              f"{tag} {k} off golden by {r:.2e}")
+    return ", ".join(f"{k} {got[k]!r} (rel {rel[k]:.2e})" for k in want)
+
+
+def _golden_run(torch, dk, s, x, func):
+    """Primal, objective(s), adjoint and totals of a golden case from
+    zero counts: (state, info, adjoint info, totals, seconds, counts)."""
+    dk.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, info = s.run_primal(s.init_state(), x)
+    psi, ainfo = s.run_adjoint(func, w, x)
+    tot = s.run_totals(func, w, x, psi)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(info.converged and not info.failed, f"{func} primal: {info}")
+    check(ainfo.converged, f"{func} adjoint: {ainfo}")
+    return w, info, ainfo, tot, dt, dict(dk.COUNTS)
+
+
+def phase_golden_scalar(torch, dk, make_solver, box):
+    """Phase 4f: golden scalar_transport (8x6 box, f64, dense layout)."""
+    pts, topo = box(8, 6, 1, (1.0, 1.0, 0.1),
+                    kinds={"zmin": "empty", "zmax": "empty"})
+    s = make_solver(scalar_transport_options(), topo, pts, device=DEVICE,
+                    dtype=torch.float64)
+    check(s.topo.dia_dense() is not None, "scalar_transport runs dense")
+    x = s.make_inputs()
+    x["params"]["U"] = torch.tensor([1.0, 0.2, 0.0], dtype=torch.float64,
+                                    device=s.device).repeat(s.topo.n_cells,
+                                                            1)
+    w, info, ainfo, tot, dt, counts = _golden_run(torch, dk, s, x, "TMean")
+    got = {"TMean": float(s.run_function("TMean", w, x)),
+           "dTMean_dDT": float(tot["params"]["DT"]),
+           "dTMean_dTin": float(tot["bc"]["T"]["xmin"]),
+           "dTMean_dpoints_norm": float(torch.linalg.norm(tot["points"]))}
+    msg = _hold_golden("scalar_transport", got,
+                       _golden_want("scalar_transport"))
+    say(f"[scalar] 8x6 f64 dense: primal {info.iters} Picard iterations; "
+        f"adjoint {ainfo.iters} FGMRES iters (segregated PC), resid "
+        f"{ainfo.resid0:.3e} -> {ainfo.resid:.3e}; {dt:.1f} s in all; {msg}"
+        f"; launch counts {counts}")
+    check_counts(counts, "golden scalar_transport",
+                 ("dia_matvec", "dia_matvec_t"))
+    return counts
+
+
+def phase_golden_heat(torch, dk, make_solver, box):
+    """Phase 4g: golden heat_radiation (10x6 box, conduction + P1
+    radiation, the coupled T-G system, no PC; f64, dense layout)."""
+    pts, topo = box(10, 6, 1, (1.0, 0.5, 0.05),
+                    kinds={"zmin": "empty", "zmax": "empty"})
+    s = make_solver(heat_radiation_options(), topo, pts, device=DEVICE,
+                    dtype=torch.float64)
+    check(s.topo.dia_dense() is not None, "heat_radiation runs dense")
+    x = s.make_inputs()
+    x["params"]["radiationAbsorptivity"] = torch.tensor(
+        0.5, dtype=torch.float64, device=s.device)
+    w, info, ainfo, tot, dt, counts = _golden_run(torch, dk, s, x, "Tm")
+    got = {"Tm": float(s.run_function("Tm", w, x)),
+           "dTm_dAbsorptivity": float(
+               tot["params"]["radiationAbsorptivity"]),
+           "dTm_dkappa": float(tot["params"]["kappa"])}
+    msg = _hold_golden("heat_radiation", got, _golden_want("heat_radiation"))
+    say(f"[heat] 10x6 f64 dense: primal {info.iters} iterations (T CG, G "
+        f"BiCGStab); adjoint {ainfo.iters} GMRES iters, resid "
+        f"{ainfo.resid0:.3e} -> {ainfo.resid:.3e}; {dt:.1f} s in all; {msg}"
+        f"; launch counts {counts}")
+    check_counts(counts, "golden heat_radiation", ("dia_matvec",))
+    return counts
+
+
+def phase_golden_rho(torch, dk, make_solver, box):
+    """Phase 4h: golden rho_channel (16x8 compressible heated channel,
+    segregated PC; f64, dense layout)."""
+    pts, topo = box(16, 8, 1, (1.0, 0.1, 0.01),
+                    kinds={"zmin": "empty", "zmax": "empty",
+                           "ymin": "wall", "ymax": "wall"})
+    s = make_solver(rho_channel_options(), topo, pts, device=DEVICE,
+                    dtype=torch.float64)
+    check(s.topo.dia_dense() is not None, "rho_channel runs dense")
+    x = s.make_inputs()
+    w, info, ainfo, tot, dt, counts = _golden_run(torch, dk, s, x, "Tout")
+    got = {"Tout": float(s.run_function("Tout", w, x)),
+           "mdot": float(s.run_function("mdot", w, x)),
+           "dTout_dTwall": float(tot["bc"]["T"]["ymin"]),
+           "dTout_dpoints_norm": float(torch.linalg.norm(tot["points"]))}
+    msg = _hold_golden("rho_channel", got, _golden_want("rho_channel"))
+    say(f"[rho-golden] 16x8 f64 dense: primal {info.iters} SIMPLE "
+        f"iterations (max_res {info.max_res:.3e}); adjoint {ainfo.iters} "
+        f"FGMRES iters, resid {ainfo.resid0:.3e} -> {ainfo.resid:.3e}; "
+        f"{dt:.1f} s in all; {msg}; launch counts {counts}")
+    check_counts(counts, "golden rho_channel",
+                 PRIMAL_KERNELS + ("dia_matvec_t", "dia_matvec_multi_t"))
+    return counts
+
+
 def setup_full(torch, make_solver, omesh):
     t0 = time.perf_counter()
     pts, topo = omesh(n_wrap=FULL, n_radial=FULL, radius=15.0,
@@ -1192,6 +1457,147 @@ def phase_residual_full(torch, dk, s, inputs, st):
     return out
 
 
+def phase_rho_full(torch, dk, make_solver, s0):
+    """Phase 9: DARhoSimpleFoam + SA on the 512x512 O-mesh (f32, dense),
+    ITERS SIMPLE iterations, then one 60-iteration residual-form FGMRES
+    cycle (segregated PC) and the totals. Returns (solver, inputs, state,
+    primal counts, adjoint counts)."""
+    t0 = time.perf_counter()
+    s = make_solver(rho_options(), s0.topo, s0.points.cpu().numpy(),
+                    device=DEVICE, dtype=torch.float32)
+    inputs = s.make_inputs()
+    st0 = s.init_state()
+    torch.cuda.synchronize()
+    say(f"[rho] {FULL}x{FULL} DARhoSimpleFoam + SA, Mach 0.5 (U_inf "
+        f"{U_INF:.4f} m/s), Re_c 1000 (mu {MU_INF:.6f} Pa s), rho "
+        f"relaxation {RHO_RELAX}: set-up {time.perf_counter() - t0:.1f} s")
+    with torch.no_grad():
+        res1 = float(s._one_iter(st0, inputs, s.geometry(inputs),
+                                 s.rho_of(st0, inputs), False)[2])
+    dk.reset_counts()
+    s.solve_stats.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, info = s.run_primal(st0, inputs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(dk.COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    cd = float(s.run_function("CD", st, inputs))
+    with torch.no_grad():
+        rho = s.rho_of(st, inputs)
+        mach = torch.linalg.norm(st["U"], dim=-1) \
+            / torch.sqrt(GAMMA * R_GAS * st["T"])
+    per = {k: v[1] / ITERS for k, v in s.solve_stats.items()}
+    say(f"[rho] {ITERS} SIMPLE iterations in {dt:.2f} s = "
+        f"{dt / ITERS * 1e3:.2f} ms/iter; max_res first {res1:.4e} final "
+        f"{info.max_res:.4e}; CD {cd!r} N/m; rho in "
+        f"[{float(rho.min()):.4f}, {float(rho.max()):.4f}], Mach in "
+        f"[{float(mach.min()):.4f}, {float(mach.max()):.4f}], T in "
+        f"[{float(st['T'].min()):.2f}, {float(st['T'].max()):.2f}]; Krylov "
+        "iterations per SIMPLE iteration: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+        + f"; peak device memory {peak:.0f} MiB")
+    say(f"[rho] launch counts {counts}")
+    check(info.iters == ITERS, "compressible iteration count")
+    check(s.states_valid(st), "compressible state is not finite/valid")
+    check(not info.failed, f"compressible primal failed: {info}")
+    check(info.max_res < res1,
+          f"compressible max_res did not fall: {res1} -> {info.max_res}")
+    check(math.isfinite(cd), f"compressible CD not finite: {cd}")
+    check_counts(counts, "compressible full width")
+
+    state = {k: v.detach() for k, v in st.items()}
+    dk.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psi, ainfo = s.solve_adjoint(state, inputs, "CD")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    adj = dict(dk.COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    tot = s.total_derivative(state, inputs, "CD", psi)
+    torch.cuda.synchronize()
+    tt = time.perf_counter() - t0
+    n = max(ainfo.iters, 1)
+    dmu = float(tot["params"]["mu"])
+    dpts = float(torch.linalg.norm(tot["points"]))
+    dtin = float(tot["bc"]["T"]["far"])
+    say(f"[rho-adjoint] {ainfo.iters} FGMRES iters (segregated PC, restart "
+        f"60) in {dt:.2f} s = {dt / n * 1e3:.1f} ms per preconditioned "
+        f"iteration (dJ/dW, the PC build and the residual graph's "
+        f"recording included); resid0 {ainfo.resid0:.6e} -> resid "
+        f"{ainfo.resid:.6e}; peak device memory {peak:.0f} MiB; "
+        f"total_derivative {tt:.2f} s: dCD/dmu {dmu!r}, dCD/dT_far "
+        f"{dtin!r}, ||dCD/dpoints|| {dpts!r}")
+    say("[rho-adjoint] launches per iteration: " + ", ".join(
+        f"{k} {adj[k] / n:.2f}" for k in KERNELS) + f"; launch counts {adj}")
+    check(all(bool(torch.isfinite(v).all()) for v in psi.values()),
+          "compressible psi is not finite")
+    check(all(math.isfinite(v) for v in (dmu, dpts, dtin)),
+          "compressible totals not finite")
+    check(ainfo.iters == 60, f"compressible adjoint: {ainfo}")
+    check_counts(adj, "compressible adjoint",
+                 ("dia_matvec_t", "dia_matvec_multi_t"))
+    return s, inputs, st, counts, adj
+
+
+def phase_rho_transonic(torch, dk, adjsolver, make_solver, s9, st9):
+    """Phase 9b: 20 DARhoSimpleCFoam iterations from phase 9's state (no
+    subsonic warm start): the p equation is non-symmetric and goes to
+    BiCGStab; then one vjp of the normalized residuals. Returns the
+    primal's counts."""
+    iters = 20
+    s = make_solver(rho_options(solverName="DARhoSimpleCFoam",
+                                transonicInitMaxIters=0,
+                                primalMinIters=iters, primalMaxIters=iters),
+                    s9.topo, s9.points.cpu().numpy(), device=DEVICE,
+                    dtype=torch.float32)
+    inputs = s.make_inputs()
+    dk.reset_counts()
+    s.solve_stats.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, info = s.run_primal(st9, inputs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(dk.COUNTS)
+    cd = float(s.run_function("CD", st, inputs))
+    per = {k: v[1] / v[0] for k, v in s.solve_stats.items()}
+    say(f"[rhoC] {FULL}x{FULL} f32 DARhoSimpleCFoam: {iters} SIMPLE "
+        f"iterations in {dt:.2f} s = {dt / iters * 1e3:.2f} ms/iter; max_res "
+        f"{info.max_res:.4e}; CD {cd!r}; p solved as symmetric: "
+        f"{s.last_p_symmetric} ({s.solve_stats['p'][0]} BiCGStab solves); "
+        "Krylov iterations per solve: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+        + f"; launch counts {counts}")
+    check(info.iters == iters and s.states_valid(st) and not info.failed,
+          f"transonic primal: {info}")
+    check(s.last_p_symmetric is False and s.solve_stats["p"][0] == iters,
+          "the transonic p equation was not solved as non-symmetric")
+    check(math.isfinite(cd), f"transonic CD not finite: {cd}")
+    check_counts(counts, "transonic primal")
+
+    state = {k: v.detach() for k, v in st.items()}
+    gen = torch.Generator(device=s.device).manual_seed(5)
+    v = {k: torch.randn(t.shape, generator=gen, device=s.device,
+                        dtype=t.dtype) for k, t in state.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, f_vjp = adjsolver.vjp(lambda w: s._norm_residuals(w, inputs), state)
+    g = f_vjp(v)
+    torch.cuda.synchronize()
+    say(f"[rhoC] one vjp of the normalized residuals (recording "
+        f"included): {(time.perf_counter() - t0) * 1e3:.1f} ms; |vjp| max "
+        + ", ".join(f"{k} {float(t.abs().max()):.3e}" for k, t in g.items()))
+    check(all(bool(torch.isfinite(t).all()) for t in g.values()),
+          "transonic residual vjp is not finite")
+    return counts
+
+
 def profile_call(torch, label, fn):
     """One call of ``fn`` under the profiler: top kernels by device time,
     DIA kernels, host syncs and the device's busy share of the call."""
@@ -1240,8 +1646,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one SIMPLE iteration (Jacobi and mg "
-                         "pressure PC), one adjoint product and one "
-                         "residual-form iteration at 512x512")
+                         "pressure PC), one adjoint product, one "
+                         "residual-form iteration and one compressible "
+                         "SIMPLE iteration at 512x512")
     args = ap.parse_args()
 
     t_start = time.perf_counter()
@@ -1270,6 +1677,9 @@ def main():
     phase_golden_implicit(torch, dk, make_solver, omesh_naca0012, gstate,
                           gwant)
     phase_golden_cavity(torch, dk, make_solver, box_hex_mesh)
+    phase_golden_scalar(torch, dk, make_solver, box_hex_mesh)
+    phase_golden_heat(torch, dk, make_solver, box_hex_mesh)
+    phase_golden_rho(torch, dk, make_solver, box_hex_mesh)
 
     st, res1, info, dt, counts, cd = run_full(torch, dk, s, inputs, st0)
     per = {k: v[1] / ITERS for k, v in s.solve_stats.items()}
@@ -1301,6 +1711,10 @@ def main():
     sst_counts, sst_adj_counts = phase_turb_full(torch, dk, adjsolver,
                                                  make_solver, s)
     model_counts = phase_turb_models(torch, dk, make_solver, s)
+    s9, inputs9, st9, rho_counts, rho_adj_counts = phase_rho_full(
+        torch, dk, make_solver, s)
+    rhoc_counts = phase_rho_transonic(torch, dk, adjsolver, make_solver,
+                                      s9, st9)
     phase_kernel_times(torch, dk, real, stats)
 
     if args.profile:
@@ -1313,6 +1727,10 @@ def main():
         with overridden(s.option, primalLinearSolver=lin):
             profile_call(torch, "one SIMPLE iteration with pPC mg",
                          lambda: s.run_primal(st, inputs))
+        with overridden(s9.option, primalMinIters=1, primalMaxIters=1):
+            profile_call(torch, "one compressible SIMPLE iteration "
+                         "(DARhoSimpleFoam + SA)",
+                         lambda: s9.run_primal(st9, inputs9))
 
     paths = {"primal": counts, "primal_line_pc": line_counts,
              "primal_mg_pc": mg_counts,
@@ -1322,7 +1740,10 @@ def main():
              "fixed_point_adjoint_krylov_smoother": krylov_counts,
              "kOmegaSST_primal": sst_counts,
              "kOmegaSST_fixed_point_adjoint": sst_adj_counts,
-             **{f"{k}_primal": v for k, v in model_counts.items()}}
+             **{f"{k}_primal": v for k, v in model_counts.items()},
+             "rho_primal": rho_counts,
+             "rho_residual_adjoint_segregated": rho_adj_counts,
+             "rhoC_primal": rhoc_counts}
     rows = []
     for name, meta in KERNELS.items():
         st_k = stats[name]

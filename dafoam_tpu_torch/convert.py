@@ -1,11 +1,14 @@
 """Carry inputs and states between dafoam_tpu (numpy side) and the port.
 
 ``inputs_from_numpy`` takes a ``make_inputs()``-shaped dict of the JAX
-package (points, bc values, params) as numpy arrays or Python numbers and
-returns the port's tensors on a device and dtype; ``state_from_numpy``
-does the same for a state dict (U, p, phi, nuTilda, ...), and
-``state_to_numpy`` is its inverse. The same two carry the fixed-point
-adjoint's psibar (a state-shaped dict) either way.
+package (points, bc values and parametric-BC dicts, params with their
+MRF/regressionPar/fvSourcePar sub-dicts, aoa, T_old, data) as numpy
+arrays or Python numbers and returns the port's tensors on a device and
+dtype, nested dicts and all; ``inputs_to_numpy`` is its inverse (also for
+totals, which are input-shaped). ``state_from_numpy`` does the same for a
+state dict (U, p, T, G, D, the volumetric or mass flux phi, the model
+states), and ``state_to_numpy`` is its inverse. The same two carry the
+fixed-point adjoint's psibar (a state-shaped dict) either way.
 
 ``recycle_from_numpy``/``recycle_to_numpy`` carry the deflated GMRES
 recycle space (aug0/return_aug), a (k, n_flat) array over the state
@@ -30,6 +33,13 @@ def inputs_from_numpy(inputs: dict, device, dtype) -> dict:
     """{points, bc: {field: {patch: value}}, params: {name: value}} of
     numpy values -> the same dict of tensors."""
     return _to_tensor(inputs, torch.device(device), dtype)
+
+
+def inputs_to_numpy(inputs: dict) -> dict:
+    """The inverse of ``inputs_from_numpy`` (nested dicts of numpy)."""
+    if isinstance(inputs, dict):
+        return {k: inputs_to_numpy(v) for k, v in inputs.items()}
+    return inputs.detach().cpu().numpy()
 
 
 def state_from_numpy(state: dict, device, dtype) -> dict:

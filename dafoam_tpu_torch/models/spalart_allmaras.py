@@ -58,6 +58,9 @@ class SpalartAllmaras(TurbulenceModel):
         bc_spec = bc_spec or {}
         # accept either the full boundaryConditions spec or the nuTilda one
         self.bc_spec = bc_spec.get("nuTilda", bc_spec)
+        # field-inversion production multiplier beta(W; theta), set by the
+        # owning solver for a betaFI field or a regression model
+        self.beta_fn = None
 
     # ------------------------------------------------------------------
     def _chi_fv1(self, nuTilda, nu):
@@ -110,6 +113,8 @@ class SpalartAllmaras(TurbulenceModel):
         cross = CB2 / SIGMA_NUT * (gn * gn).sum(dim=-1)
         stilda, fw, d = self._stilda_fw(state, inputs, geom, gradU)
         prod = CB1 * stilda * nuTilda
+        if self.beta_fn is not None:
+            prod = prod * self.beta_fn(state, inputs, geom, gradU)
         # sources on RHS: cross-diffusion + production
         M = M.add_source((cross + prod) * geom.vol)
         return M + fvm.Sp(geom, topo, CW1 * fw * nuTilda / d ** 2, nuTilda)

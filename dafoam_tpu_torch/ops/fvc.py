@@ -8,8 +8,9 @@ from __future__ import annotations
 
 import torch
 
-from dafoam_tpu_torch.ops.core import (cell_to_face_nei, cell_to_face_own,
-                                       surface_sum)
+from dafoam_tpu_torch.ops.core import (boundary_scatter_add,
+                                       cell_to_face_nei, cell_to_face_own,
+                                       face_sum_pair, surface_sum)
 
 
 def interpolate(geom, topo, psi: torch.Tensor, psi_b: torch.Tensor):
@@ -54,6 +55,13 @@ def div_surface(geom, topo, phi_f: torch.Tensor):
     return out / geom.vol.reshape((-1,) + extra)
 
 
+def div(geom, topo, phi_f, psi, psi_b):
+    """Explicit convection fvc::div(phi, psi) with linear interpolation."""
+    fvals = interpolate(geom, topo, psi, psi_b)
+    t = phi_f.reshape((-1,) + (1,) * (psi.ndim - 1)) * fvals
+    return div_surface(geom, topo, t)
+
+
 def div_tensor(geom, topo, T, T_b):
     """fvc::div of a cell tensor field: (1/V) sum_f Sf . T_f -> (nc,3)."""
     Tf = interpolate(geom, topo, T, T_b)
@@ -67,3 +75,32 @@ def flux(geom, topo, U, U_b):
     """fvc::flux(U) = Sf & interp(U) on every face -> (nf,)."""
     Uf = interpolate(geom, topo, U, U_b)
     return (geom.sf * Uf).sum(dim=-1)
+
+
+def average_to_faces(geom, topo, psi, psi_b):
+    return interpolate(geom, topo, psi, psi_b)
+
+
+def cell_sum(geom, vals):
+    return torch.sum(vals * geom.vol)
+
+
+def reconstruct(geom, topo, F_face):
+    """OpenFOAM fvc::reconstruct: cell vector field from face fluxes,
+
+    r_c = [sum_f (Sf Sf^T)/|Sf|]^-1  sum_f (Sf/|Sf|) F_f
+
+    Degenerate (zero-area) dense-layout faces contribute nothing."""
+    ni = topo.n_internal
+    msf = torch.where(geom.magsf > 0.0, geom.magsf, 1.0)
+    sf_n = geom.sf / msf[:, None]
+    # G = sum_f Sf (x) Sf/|Sf| : (nc, 3, 3), owner and neighbour rows
+    outer = (geom.sf[:, :, None] * sf_n[:, None, :]).reshape(-1, 9)
+    Gi = face_sum_pair(outer[:ni], outer[:ni], topo)
+    G = boundary_scatter_add(Gi, outer[ni:], topo).reshape(-1, 3, 3)
+    rhs_f = sf_n * F_face[:, None]
+    ri = face_sum_pair(rhs_f[:ni], rhs_f[:ni], topo)
+    r = boundary_scatter_add(ri, rhs_f[ni:], topo)
+    # regularize to keep 3x3 invertible on 2-D (empty-direction) meshes
+    G = G + 1e-30 * torch.eye(3, dtype=F_face.dtype, device=F_face.device)
+    return torch.linalg.solve(G, r[..., None])[..., 0]

@@ -32,21 +32,42 @@ def _rank_r(x, psi):
 
 
 def div(geom, topo, phi_f, psi, bcoef: BCoef, scheme: str = "upwind",
-        bounded: bool = False) -> FvMatrix:
-    """fvm::div(phi, psi): implicit upwind convection.
+        bounded: bool = False, grad_psi=None) -> FvMatrix:
+    """fvm::div(phi, psi): implicit convection.
 
-    ``bounded`` subtracts Sp(fvc::div(phi), psi) (OpenFOAM 'bounded Gauss'
-    — removes the non-conservative part for steady-state runs before
-    continuity is converged).
+    scheme: "upwind" | "linear" | "linearUpwind". ``bounded`` subtracts
+    Sp(fvc::div(phi), psi) (OpenFOAM 'bounded Gauss' — removes the
+    non-conservative part for steady-state runs before continuity is
+    converged). "linearUpwind" is implicit upwind plus the explicit
+    deferred correction phi * grad_up . (Cf - C_up) (``grad_psi``, or the
+    Gauss gradient of psi when absent).
     """
-    if scheme != "upwind":
-        raise NotImplementedError(
-            f"div scheme {scheme!r} is not ported yet: the SIMPLE+SA slice "
-            "of dafoam_tpu_torch runs upwind only")
     ni = topo.n_internal
     phi_i = phi_f[:ni]
     phi_b = phi_f[ni:] * bcoef.active
-    w = (phi_i >= 0.0).to(psi.dtype)
+
+    lu_corr = None
+    if scheme in ("upwind", "linearUpwind"):
+        w = (phi_i >= 0.0).to(psi.dtype)
+        if scheme == "linearUpwind":
+            if grad_psi is None:
+                grad_psi = fvc.grad(geom, topo, psi,
+                                    boundary_value(bcoef, psi, topo))
+            pos = phi_i >= 0.0
+            cc_up = torch.where(pos[:, None],
+                                cell_to_face_own(geom.cc, topo),
+                                cell_to_face_nei(geom.cc, topo))
+            g_up = torch.where(
+                pos.reshape((-1,) + (1,) * (grad_psi.ndim - 1)),
+                cell_to_face_own(grad_psi, topo),
+                cell_to_face_nei(grad_psi, topo))
+            d = geom.cf[:ni] - cc_up                     # (ni,3)
+            dpsi = _corr_dot(d, g_up)
+            lu_corr = _rank_r(phi_i, psi) * dpsi         # explicit face flux
+    elif scheme == "linear":
+        w = geom.weights[:ni]
+    else:
+        raise NotImplementedError(f"div scheme {scheme!r}")
 
     # owner row: +phi*(w psi_o + (1-w) psi_n) ; neighbour row: -the same
     diag_own = phi_i * w
@@ -63,6 +84,11 @@ def div(geom, topo, phi_f, psi, bcoef: BCoef, scheme: str = "upwind",
     pb = _rank_r(phi_b, psi)
     diag = boundary_scatter_add(diag, pb * bcoef.vc, topo)
     source = boundary_scatter_add(source, -pb * bcoef.vb, topo)
+
+    if lu_corr is not None:
+        # deferred correction: contribution += surfaceSum(+own/-nei) of the
+        # explicit flux, i.e. source -= that sum
+        source = source - face_sum_signed(lu_corr, topo)
 
     m = FvMatrix(diag=diag, lower=lower, upper=upper, source=source)
     if bounded:
@@ -167,6 +193,23 @@ def laplacian_flux(geom, topo, gamma_f, psi, bcoef: BCoef, corrected=True,
     return torch.cat([fl_i, fl_b])
 
 
+def div_flux(geom, topo, phi_f, psi, bcoef: BCoef, scheme: str = "upwind"):
+    """Implicit face flux of the convection matrix at the current psi:
+    phi_f * psi_f(scheme), the div part of fvMatrix::flux() that the
+    transonic pressure equation needs (reference DARhoSimpleCFoam)."""
+    ni = topo.n_internal
+    phi_i = phi_f[:ni]
+    if scheme == "upwind":
+        w = (phi_i >= 0.0).to(psi.dtype)
+    else:
+        w = geom.weights[:ni]
+    fl_i = phi_i * (w * cell_to_face_own(psi, topo)
+                    + (1.0 - w) * cell_to_face_nei(psi, topo))
+    fl_b = phi_f[ni:] * bcoef.active * (bcoef.vc * boundary_gather(psi, topo)
+                                        + bcoef.vb)
+    return torch.cat([fl_i, fl_b])
+
+
 def Sp(geom, topo, coef, psi) -> FvMatrix:
     """fvm::Sp(coef, psi): implicit source, diag += coef * V."""
     ni = topo.n_internal
@@ -178,4 +221,27 @@ def Sp(geom, topo, coef, psi) -> FvMatrix:
         lower=psi.new_zeros((ni,)),
         upper=psi.new_zeros((ni,)),
         source=_zeros_like_state(psi, topo),
+    )
+
+
+def ddt(geom, topo, psi, psi_old, dt, psi_oldold=None,
+        scheme="Euler") -> FvMatrix:
+    """fvm::ddt: implicit Euler or BDF2 ('backward') time derivative."""
+    ni = topo.n_internal
+    v = geom.vol if psi.ndim == 1 else geom.vol[:, None]
+    if scheme == "Euler":
+        diagc = v / dt
+        src = v / dt * psi_old
+    elif scheme == "backward":
+        if psi_oldold is None:
+            raise ValueError("ddt 'backward' needs psi_oldold")
+        diagc = 1.5 * v / dt
+        src = v / dt * (2.0 * psi_old - 0.5 * psi_oldold)
+    else:
+        raise NotImplementedError(scheme)
+    return FvMatrix(
+        diag=_zeros_like_state(psi, topo) + diagc,
+        lower=psi.new_zeros((ni,)),
+        upper=psi.new_zeros((ni,)),
+        source=_zeros_like_state(psi, topo) + src,
     )

@@ -5,16 +5,24 @@ import torch
 from dafoam_tpu_torch.mesh.topology import to_dia_dense
 from dafoam_tpu_torch.option import DAOption
 from dafoam_tpu_torch.solvers.base import DASolverBase, PrimalInfo
+from dafoam_tpu_torch.solvers.heat_transfer import DAHeatTransferFoam
+from dafoam_tpu_torch.solvers.rho_simple import (DARhoSimpleCFoam,
+                                                 DARhoSimpleFoam,
+                                                 DATurboFoam)
+from dafoam_tpu_torch.solvers.scalar_transport import DAScalarTransportFoam
 from dafoam_tpu_torch.solvers.simple import DASimpleFoam
+from dafoam_tpu_torch.solvers.solid import DASolidDisplacementFoam
+from dafoam_tpu_torch.solvers.topo_cht import DATopoChtFoam
 
-_SOLVER_REGISTRY = {"DASimpleFoam": DASimpleFoam}
-# solvers of dafoam_tpu that the port does not have yet (ROADMAP.md P8-P9)
+_SOLVER_REGISTRY = {c.__name__: c for c in (
+    DAScalarTransportFoam, DAHeatTransferFoam, DASimpleFoam,
+    DASolidDisplacementFoam, DARhoSimpleFoam, DARhoSimpleCFoam, DATurboFoam,
+    DATopoChtFoam)}
+# solvers of dafoam_tpu that the port does not have yet (ROADMAP.md P8
+# DAHisaFoam, P9)
 _NOT_PORTED = (
-    "DAScalarTransportFoam", "DAHeatTransferFoam", "DAPimpleFoam",
-    "DASolidDisplacementFoam", "DARhoSimpleFoam", "DARhoSimpleCFoam",
-    "DATurboFoam", "DATopoChtFoam", "DARhoPimpleFoam", "DAPimpleDyMFoam",
-    "DAInterFoam", "DAIrkPimpleFoam", "DAHisaFoam",
-    "DATimeSpectralScalarFoam")
+    "DAHisaFoam", "DAPimpleFoam", "DARhoPimpleFoam", "DAPimpleDyMFoam",
+    "DAInterFoam", "DAIrkPimpleFoam", "DATimeSpectralScalarFoam")
 
 
 def make_solver(option, topo, points, *, device, dtype):
@@ -33,7 +41,7 @@ def make_solver(option, topo, points, *, device, dtype):
             "(ROADMAP.md queue 1, P9)")
     if name in _NOT_PORTED:
         raise NotImplementedError(f"solver {name!r} is not ported yet "
-                                  "(ROADMAP.md queue 1, P8-P9)")
+                                  "(ROADMAP.md queue 1)")
     if name not in _SOLVER_REGISTRY:
         raise KeyError(f"unknown solver {name!r}; have "
                        f"{list(_SOLVER_REGISTRY)}")
@@ -53,4 +61,7 @@ def make_solver(option, topo, points, *, device, dtype):
                                   dtype=dtype)
 
 
-__all__ = ["DASolverBase", "PrimalInfo", "DASimpleFoam", "make_solver"]
+__all__ = ["DASolverBase", "PrimalInfo", "DAScalarTransportFoam",
+           "DAHeatTransferFoam", "DASimpleFoam", "DASolidDisplacementFoam",
+           "DARhoSimpleFoam", "DARhoSimpleCFoam", "DATurboFoam",
+           "DATopoChtFoam", "make_solver"]

@@ -37,11 +37,15 @@ from dafoam_tpu_torch.mesh.geometry import compute_geometry
 from dafoam_tpu_torch.option import DAOption
 from dafoam_tpu_torch.states import StateInfo, StateLayout
 
-# DAMisc parametric BC types of dafoam_tpu: not in this slice
+# DAMisc parametric BC types (ops/bc.py): their numeric parameters are
+# inputs, so they can be design variables
 _PARAMETRIC_BC_TYPES = (
     "multiFreqScalar", "multiFreqVector", "varyingVelocity",
     "varyingVelocityInletOutlet", "homTemp", "wallHeatFluxTransfer",
     "fixedWallHeatFlux")
+# spec keys that stay static (structure, not values)
+_STATIC_BC_KEYS = ("type", "component", "flowComponent",
+                   "normalComponent", "endTime", "value")
 
 class PrimalInfo(NamedTuple):
     iters: int
@@ -59,6 +63,8 @@ class DASolverBase:
         self.topo = topo
         self.device = torch.device(device)
         self.dtype = dtype
+        # Krylov work of the inner solves: {equation: [solves, iterations]}
+        self.solve_stats = {}
         self.points = self._tensor(np.asarray(points))
         self.layout = StateLayout(
             self.state_info, topo.n_cells, topo.n_faces,
@@ -71,12 +77,13 @@ class DASolverBase:
             self.bc_spec[field] = {}
             self.bc_values0[field] = {}
             for pname, spec in patches.items():
-                if spec.get("type") in _PARAMETRIC_BC_TYPES:
-                    raise NotImplementedError(
-                        f"BC type {spec['type']!r} is not ported yet")
                 self.bc_spec[field][pname] = {
                     k: v for k, v in spec.items() if k != "value"}
-                if "value" in spec:
+                if spec.get("type") in _PARAMETRIC_BC_TYPES:
+                    self.bc_values0[field][pname] = {
+                        k: self._tensor(v) for k, v in spec.items()
+                        if k not in _STATIC_BC_KEYS}
+                elif "value" in spec:
                     self.bc_values0[field][pname] = self._tensor(
                         spec["value"])
         # default empty-patch handling: every field gets "empty" on empty kinds
@@ -90,15 +97,21 @@ class DASolverBase:
     def _tensor(self, v):
         return torch.as_tensor(v, dtype=self.dtype, device=self.device)
 
+    def _log_solve(self, name, info):
+        st = self.solve_stats.setdefault(name, [0, 0])
+        st[0] += 1
+        st[1] += info.iters
+
     # ------------------------------------------------------------------
     # inputs
     # ------------------------------------------------------------------
     def make_inputs(self) -> dict:
         params = {k: self._tensor(v)
                   for k, v in self.option["transportProperties"].items()}
-        return {"points": self.points,
-                "bc": {f: dict(v) for f, v in self.bc_values0.items()},
-                "params": params}
+        bcv = {f: {p: dict(v) if isinstance(v, dict) else v
+                   for p, v in pv.items()}
+               for f, pv in self.bc_values0.items()}
+        return {"points": self.points, "bc": bcv, "params": params}
 
     def geometry(self, inputs):
         return compute_geometry(inputs["points"], self.topo)
@@ -147,20 +160,33 @@ class DASolverBase:
     # ------------------------------------------------------------------
     # functions
     # ------------------------------------------------------------------
-    def function_ctx(self, state, inputs) -> dict:
+    def function_ctx(self, state, inputs, with_residuals=False) -> dict:
         """Build the evaluation context for the function registry."""
         geom = self.geometry(inputs)
-        return {"state": state, "geom": geom, "topo": self.topo,
-                "boundary": self.boundary_fields(state, inputs, geom),
-                "phi": state["phi"]}
+        phi = state.get("phi")
+        if phi is None:
+            phi = geom.magsf.new_zeros((self.topo.n_faces,))
+        ctx = {"state": state, "geom": geom, "topo": self.topo,
+               "boundary": self.boundary_fields(state, inputs, geom),
+               "phi": phi, "aux": self.aux_fields(state, inputs, geom),
+               "data": inputs.get("data", {})}
+        if with_residuals:
+            ctx["residuals"] = self.residuals(state, inputs)
+        return ctx
 
     def boundary_fields(self, state, inputs, geom) -> dict:
         """Override: boundary-face values of each field for functions."""
         return {}
 
+    def aux_fields(self, state, inputs, geom) -> dict:
+        """Override: derived cell fields functions may read by name."""
+        return {}
+
     def eval_function(self, name, state, inputs):
         cfg = self.option["function"][name]
-        return evaluate_function(cfg, self.function_ctx(state, inputs))
+        ctx = self.function_ctx(state, inputs,
+                                with_residuals=cfg["type"] == "residualNorm")
+        return evaluate_function(cfg, ctx)
 
     # ------------------------------------------------------------------
     # entry points
@@ -355,8 +381,13 @@ class DASolverBase:
     # ------------------------------------------------------------------
     # failure detection (reference DASolver::validateStates, DASolver.C:3787)
     # ------------------------------------------------------------------
-    def states_valid(self, state) -> bool:
-        """All states finite and below 1e15 in magnitude (one host sync)."""
+    def states_valid_t(self, state) -> torch.Tensor:
+        """All states finite and below 1e15 in magnitude, as a 0-d bool
+        tensor on the device (no host sync)."""
         oks = [torch.all(torch.isfinite(v) & (torch.abs(v) < 1e15))
                for v in state.values()]
-        return bool(torch.stack(oks).all())
+        return torch.stack(oks).all()
+
+    def states_valid(self, state) -> bool:
+        """``states_valid_t`` read on the host (one sync)."""
+        return bool(self.states_valid_t(state))

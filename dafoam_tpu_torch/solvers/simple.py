@@ -5,10 +5,13 @@ Reference: DASimpleFoam (src/adjoint/DASolver/DASimpleFoam/: UEqnSimple.H
 momentum predictor, pEqnSimple.H pressure projection). One outer SIMPLE
 iteration runs a BiCGStab momentum solve (component-major, K2; skipped
 with momentumPredictor off), a pressure solve (K1; Jacobi-CG, or
-BiCGStab with the line or multigrid PC) and one BiCGStab solve per
-turbulence-model state (K1). SIMPLEC (simple.consistent), an all-Neumann
-pressure (adjustPhi and a reference cell) and user U/p bounds follow
-``dafoam_tpu``.
+BiCGStab with the line or multigrid PC), one BiCGStab solve per
+turbulence-model state (K1) and, with a T field, one for the passive
+temperature (K1). SIMPLEC (simple.consistent), an all-Neumann pressure
+(adjustPhi and a reference cell), user U/p bounds, MRF zones
+(``mrf.py``), fvSource momentum sources (``fvsource.py``), the
+alphaPorosity sink and regression-model production multipliers
+(``regression.py``) follow ``dafoam_tpu``.
 
 The outer loop is Python: each iteration reads the max normalized
 residual and the state validity on the host (and, with
@@ -22,7 +25,10 @@ import math
 import numpy as np
 import torch
 
+from dafoam_tpu_torch import mrf as mrfm
+from dafoam_tpu_torch import regression
 from dafoam_tpu_torch.adjoint.precond import build_forward_pc, build_pc
+from dafoam_tpu_torch.fvsource import compute_fv_source
 from dafoam_tpu_torch.linalg import fvsolve
 from dafoam_tpu_torch.mesh.geometry import compute_geometry
 from dafoam_tpu_torch.mesh.walldist import compute_wall_distance
@@ -61,29 +67,19 @@ def _window_stats(vals, n, frac):
             torch.abs(torch.where(cnt >= 2, slope, big)))
 
 
-def _not_ported(what, slice_name):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, {slice_name})")
-
-
 class DASimpleFoam(DASolverBase):
 
     def __init__(self, option, topo, points, *, device, dtype):
         opt = option if isinstance(option, DAOption) else DAOption(option)
         turb_name = opt["turbulenceModel"]
         model_states = turbulence_model_class(turb_name).model_states
-        if "T" in opt.get("boundaryConditions", {}):
-            raise _not_ported("the passive temperature field of "
-                              "DASimpleFoam", "P8")
-        if opt.get("MRF", {}).get("active"):
-            raise _not_ported("MRF", "P8")
-        if opt.get("fvSource"):
-            raise _not_ported("fvSource", "P8")
-        if opt.get("regressionModel", {}).get("active"):
-            raise _not_ported("regressionModel", "P8")
-        self.state_info = StateInfo(vol_vector=("U",), vol_scalar=("p",),
-                                    model=tuple(model_states),
-                                    surface_scalar=("phi",))
+        # optional passive temperature field (reference hasTField,
+        # DAResidualSimpleFoam.C:50, :215-236)
+        self.has_T = "T" in opt.get("boundaryConditions", {})
+        self.state_info = StateInfo(
+            vol_vector=("U",), vol_scalar=("p", "T") if self.has_T
+            else ("p",), model=tuple(model_states),
+            surface_scalar=("phi",))
         super().__init__(opt, topo, points, device=device, dtype=dtype)
 
         # frozen wall distance (meshWaveFrozen semantics), on the host
@@ -115,26 +111,65 @@ class DASimpleFoam(DASolverBase):
         self._user_bounds = (option.get("primalVarBounds", {})
                              if isinstance(option, dict) else {})
         self.turb.setup_wall_functions(self.bc_spec)
-        # Krylov work of the inner solves: {equation: [solves, iterations]}
-        self.solve_stats = {}
+        # field inversion / data-driven turbulence: beta multiplier on the
+        # SA production (betaFI field and/or regression models)
+        if hasattr(self.turb, "beta_fn"):
+            self.turb.beta_fn = self._compute_beta
 
-    def _log_solve(self, name, info):
-        st = self.solve_stats.setdefault(name, [0, 0])
-        st[0] += 1
-        st[1] += info.iters
+    def regression_n_params(self, model_name):
+        cfg = self.option["regressionModel"][model_name]
+        if cfg.get("modelType", "neuralNetwork") == "neuralNetwork":
+            return regression.nn_sizes(cfg["hiddenLayerNeurons"],
+                                       len(cfg["inputNames"]))
+        return 2 * cfg["nRBFs"] * len(cfg["inputNames"]) + cfg["nRBFs"]
+
+    def _compute_beta(self, state, inputs, geom, gradU):
+        """beta(W; theta): the product of an optional betaFI cell field and
+        the active regression models (reference DARegression.compute);
+        1.0 when neither is configured."""
+        beta = inputs["params"].get("betaFI")
+        rm = self.option.get("regressionModel", {})
+        reg_par = inputs["params"].get("regressionPar", {})
+        if rm.get("active"):
+            p = state["p"]
+            p_b = bc.boundary_value(
+                self._bco_p(p, inputs, geom, state["phi"]), p, self.topo)
+            fctx = {"U": state["U"], "gradU": gradU, "p": p,
+                    "gradp": fvc.grad(geom, self.topo, p, p_b),
+                    "nuTilda": state.get("nuTilda"),
+                    "nut": self.turb.nut(state, inputs, geom),
+                    "nu": inputs["params"]["nu"] * torch.ones_like(p),
+                    "wall_dist": self.wall_dist,
+                    "k": state.get("k")}
+            for name, cfg in rm.items():
+                if name == "active" or not isinstance(cfg, dict):
+                    continue
+                theta = reg_par.get(name)
+                if theta is None:
+                    continue
+                b = regression.evaluate(cfg, theta, fctx)
+                beta = b if beta is None else beta * b
+        return 1.0 if beta is None else beta
 
     # ------------------------------------------------------------------
     # BC helpers
     # ------------------------------------------------------------------
     def _bco_U(self, U, inputs, geom, phi):
-        return bc.coeffs(self.bc_spec["U"], inputs["bc"].get("U", {}),
-                         self.topo, geom, U, rank=1,
-                         phi_b=phi[self.topo.n_internal:])
+        vals = inputs["bc"].get("U", {})
+        mrf = self.option.get("MRF", {})
+        if mrf.get("active") and mrf.get("rotatingPatches"):
+            vals = dict(vals)
+            vals.update(mrfm.rotating_wall_values(
+                mrf, geom, self.topo, mrf["rotatingPatches"], inputs))
+        return bc.coeffs(self.bc_spec["U"], vals, self.topo, geom, U,
+                         rank=1, phi_b=phi[self.topo.n_internal:],
+                         t=inputs.get("t", 0.0))
 
     def _bco_p(self, p, inputs, geom, phi):
         return bc.coeffs(self.bc_spec["p"], inputs["bc"].get("p", {}),
                          self.topo, geom, p, rank=0,
-                         phi_b=phi[self.topo.n_internal:])
+                         phi_b=phi[self.topo.n_internal:],
+                         t=inputs.get("t", 0.0))
 
     # ------------------------------------------------------------------
     # shared assembly: momentum eqn + pressure projection pieces
@@ -143,13 +178,26 @@ class DASimpleFoam(DASolverBase):
         """The relaxed momentum matrix (the adjoint PC's copy always uses
         upwind convection)."""
         U, phi = state["U"], state["phi"]
-        if inputs["params"].get("alphaPorosity") is not None:
-            raise _not_ported("alphaPorosity", "P8")
         U_bco = self._bco_U(U, inputs, geom, phi)
         scheme = "upwind" if is_pc else self.div_u_scheme
         M = fvm.div(geom, self.topo, phi, U, U_bco, scheme=scheme,
                     bounded=True) \
             + self.turb.divdevreff(U, state, inputs, geom, U_bco)
+        mrf = self.option.get("MRF", {})
+        if mrf.get("active"):
+            # + MRF.DDt(U): contribution += (Omega x U) V in the zone
+            M = M.add_source(-mrfm.ddt_source(mrf, U, geom, inputs)
+                             * geom.vol[:, None])
+        # porosity / topology-optimization sink fvm::Sp(alphaPorosity, U)
+        # (the DATopoChtFoam design variable)
+        alpha_por = inputs["params"].get("alphaPorosity")
+        if alpha_por is not None:
+            M = M + fvm.Sp(geom, self.topo, alpha_por, U)
+        if self.option.get("fvSource"):
+            src = compute_fv_source(self.option, inputs, geom)
+            if src is not None:
+                # UEqn: ... - fvSource (reference UEqnSimple.H)
+                M = M.add_source(src * geom.vol[:, None])
         alpha = self.option["relaxationFactors"]["equations"].get("U", 0.7)
         return fvx.relax(M, U, alpha, self.topo), U_bco
 
@@ -174,6 +222,9 @@ class DASimpleFoam(DASolverBase):
         else:
             HbyA_b = HbyA_own
         phiHbyA = fvc.flux(geom, topo, HbyA, HbyA_b)
+        mrf = self.option.get("MRF", {})
+        if mrf.get("active"):
+            phiHbyA = mrfm.make_relative(mrf, phiHbyA, geom, topo, inputs)
         if self.p_needs_ref:
             phiHbyA = self._adjust_phi(phiHbyA)
         if self.option["simple"]["consistent"]:
@@ -244,6 +295,44 @@ class DASimpleFoam(DASolverBase):
         return out
 
     # ------------------------------------------------------------------
+    # passive temperature
+    # ------------------------------------------------------------------
+    def _bco_T(self, T, inputs, geom, phi):
+        return bc.coeffs(self.bc_spec["T"], inputs["bc"].get("T", {}),
+                         self.topo, geom, T, rank=0,
+                         phi_b=phi[self.topo.n_internal:],
+                         t=inputs.get("t", 0.0))
+
+    def _alpha_eff_b(self, state, inputs, geom):
+        prm = inputs["params"]
+        return prm["nu"] / prm.get("Pr", 0.7) \
+            + self.turb.nut_boundary(state, inputs, geom) / prm.get("Prt",
+                                                                   0.85)
+
+    def _teqn_simple(self, state, inputs, geom):
+        """Passive temperature transport div(phi,T) - laplacian(alphaEff,T)
+        with alphaEff = nu/Pr + nut/Prt (reference
+        DAResidualSimpleFoam.C:215-236)."""
+        topo = self.topo
+        T, phi = state["T"], state["phi"]
+        prm = inputs["params"]
+        T_bco = self._bco_T(T, inputs, geom, phi)
+        alpha_eff = prm["nu"] / prm.get("Pr", 0.7) \
+            + self.turb.nut(state, inputs, geom) / prm.get("Prt", 0.85)
+        alpha_f = fvc.interpolate(geom, topo, alpha_eff,
+                                  self._alpha_eff_b(state, inputs, geom))
+        M = fvm.div(geom, topo, phi, T, T_bco, scheme="upwind",
+                    bounded=True) \
+            - fvm.laplacian(geom, topo, alpha_f, T, T_bco)
+        return M, T_bco
+
+    def thermal_conductance(self, state, inputs, geom):
+        """(nb,) Cp*alphaEff at boundary owners: the kappa piece of the
+        CHT protocol, incompressible side (DAOutputThermalCoupling.C:94)."""
+        return inputs["params"].get("Cp", 1004.5) \
+            * self._alpha_eff_b(state, inputs, geom)
+
+    # ------------------------------------------------------------------
     # residuals (adjoint)
     # ------------------------------------------------------------------
     def residuals(self, state, inputs):
@@ -264,6 +353,9 @@ class DASimpleFoam(DASolverBase):
         r_phi = phiHbyA - fvm.laplacian_flux(geom, topo, rAU_f, p, p_bco) \
             - phi
         out = {"U": r_U, "p": r_p, "phi": r_phi}
+        if self.has_T:
+            TEqn, _ = self._teqn_simple(state, inputs, geom)
+            out["T"] = fvx.residual(TEqn, state["T"], geom, topo)
         if self.turb.model_states:
             U_b = bc.boundary_value(U_bco, U, topo)
             gradU = fvc.grad(geom, topo, U, U_b)
@@ -375,6 +467,17 @@ class DASimpleFoam(DASolverBase):
             for name, info in self.turb.last_solve_info.items():
                 self._log_solve(name, info)
 
+        if self.has_T:
+            TEqn, _ = self._teqn_simple(new_state, inputs, geom)
+            alpha_T = opt["relaxationFactors"]["equations"].get("T", 0.7)
+            TEqn = fvx.relax(TEqn, new_state["T"], alpha_T, topo)
+            T_new, info = fvsolve.solve(TEqn, new_state["T"], topo,
+                                        symmetric=False,
+                                        rel_tol=lin["turbRelTol"],
+                                        max_iters=lin["turbMaxIters"])
+            self._log_solve("T", info)
+            new_state = dict(new_state, T=self._bound("T", T_new))
+
         return new_state, torch.maximum(res_U, res_p)
 
     def solve_primal(self, state, inputs):
@@ -461,11 +564,15 @@ class DASimpleFoam(DASolverBase):
         U, p, phi = state["U"], state["p"], state["phi"]
         U_bco = self._bco_U(U, inputs, geom, phi)
         p_bco = self._bco_p(p, inputs, geom, phi)
-        return {"U": bc.boundary_value(U_bco, U, topo),
-                "p": bc.boundary_value(p_bco, p, topo)}
+        out = {"U": bc.boundary_value(U_bco, U, topo),
+               "p": bc.boundary_value(p_bco, p, topo)}
+        if self.has_T:
+            out["T"] = bc.boundary_value(
+                self._bco_T(state["T"], inputs, geom, phi), state["T"], topo)
+        return out
 
-    def function_ctx(self, state, inputs):
-        ctx = super().function_ctx(state, inputs)
+    def function_ctx(self, state, inputs, with_residuals=False):
+        ctx = super().function_ctx(state, inputs, with_residuals)
         geom = ctx["geom"]
         topo = self.topo
         ni = topo.n_internal
@@ -481,4 +588,7 @@ class DASimpleFoam(DASolverBase):
         nu = inputs["params"]["nu"]
         ctx["nu_eff_b"] = self.turb.nut_boundary(state, inputs, geom) + nu
         ctx["rho_ref"] = inputs["params"].get("rhoRef", 1.0)
+        if "patchVelocity" in inputs.get("aoa", {}):
+            ctx["aoa_rad"] = inputs["aoa"]["patchVelocity"][1] * math.pi \
+                / 180.0
         return ctx
