@@ -103,18 +103,46 @@ case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
 9b. 20 DARhoSimpleCFoam (transonic SIMPLEC) iterations from phase 9's
    state without the subsonic warm start: the p equation is non-symmetric
    and must go to BiCGStab through K1; then one vjp of the normalized
-   residuals (finite). Phases 9 and 9b run after 8b.
+   residuals (finite). Phases 9 and 9b run after 8b;
+4i. golden pimple_unsteady (tests/test_golden.py:_case_pimple_unsteady,
+   the 8x8 cavity of tests/test_pimple_unsteady.py: 5 Euler steps of
+   DAPimpleFoam and the reverse sweep, segregated PC) in f64 on the dense
+   layout, after 4h: lidF_avg at 1e-8 and dlidF/dnu, ||dlidF/dpoints|| at
+   1e-6, each times max(1, |golden|) as tests/test_golden.py holds them;
+   the sweep's residuals under 1e-9; K1, K2 and K3a launched, no plain
+   version;
+10. DAHisaFoam at full width, after 9b: tests/test_hisa.py's transonic
+   bump channel at 1024x256 (262,144 cells; inviscid AUSMPlusUp, inlet
+   Mach 0.675) in f32 on the dense layout: HISA_LF laxFriedrichs and
+   HISA_AUSM AUSMPlusUp pseudo-transient Newton iterations (GMRES capped
+   at HISA_INNER per Newton step), whose max Mach must exceed 0.675; then
+   one HISA_ADJ-iteration adjoint FGMRES cycle for CDp with the
+   transposed 5x5 block PC and the totals (finite); prints ms per PTC
+   iteration, GMRES iterations per Newton step, res/res0, the CFL, the
+   Mach range, the largest |I - D D^-1| of the block inverse and peak
+   memory; no DIA kernel and no plain version runs;
+11. DAPimpleFoam at full width: the 512x512 lid-driven cavity at Re 1000
+   (0.1 m box, nu 1e-4) in f32 on the dense layout, PIMPLE_STEPS Euler
+   steps at a lid Courant number of 0.51 (4 outer, 2 pressure correctors,
+   timeOp average), then the in-memory reverse sweep and the checkpointed
+   one (seg_len PIMPLE_SEG), each step's FGMRES capped at PIMPLE_GMRES
+   (segregated PC); the two sweeps' totals must agree at rel 1e-4; K1/K2
+   in the primal, K3a in the sweeps, no plain version;
+11b. DARhoPimpleFoam: RHO_PIMPLE_STEPS steps of phase 9's case (deltaT
+   RHO_PIMPLE_DT) from phase 9's state: finite and valid, K1/K2 launched,
+   no plain version.
 
 ``--profile`` adds a torch.profiler table of one more SIMPLE iteration, of
 one (I - dG^T) product, of one residual-form iteration (a residual vjp
 and one segregated PC application), of one SIMPLE iteration with the
-multigrid pressure PC and of one compressible SIMPLE iteration (phase
-9's case). The last line of standard output is
-one JSON object with "ok" and the device; the line before it repeats the
-card's name and power limit, and the one before that lists every kernel
-with its launches on the full-width paths (phases 5, 5b, 5c, 6, 6b, 6c,
-6d, 8, 8b, 9 and 9b, each counted from zero; "launches_by_path" splits
-them),
+multigrid pressure PC, of one compressible SIMPLE iteration (phase
+9's case), of one AUSMPlusUp PTC iteration (phase 10's), of one PIMPLE
+time step and of one reverse step (phase 11's). The last line of
+standard output is one JSON object with "ok" and the device; the line
+before it repeats the card's name and power limit, and the one before
+that lists every kernel with its launches on the full-width paths
+(phases 5, 5b, 5c, 6, 6b, 6c, 6d, 8, 8b, 9, 9b, 10, 11 and 11b, each
+counted from zero; "launches_by_path" splits them),
 its error against the plain version, its times and its bound. The script
 prints its total wall seconds before those lines.
 """
@@ -436,6 +464,134 @@ def rho_options(**over):
         "meshFaceLayout": "diaDense"}
     opts.update(over)
     return opts
+
+
+def pimple_cavity_options(n=8, **over):
+    """tests/test_pimple_unsteady.py:cavity_unsteady's options (the golden
+    pimple_unsteady), on the dense layout, with the segregated PC of
+    tests/test_torch_pimple.py (unpreconditioned, the dense layout's
+    reverse sweep stops at its 1000-iteration cap)."""
+    zero = [0.0, 0.0, 0.0]
+    opts = {
+        "solverName": "DAPimpleFoam",
+        "turbulenceModel": "None",
+        "transportProperties": {"nu": 0.01},
+        "deltaT": 0.02, "endTime": 0.1,
+        "pimple": {"nOuterCorrectors": 12, "nCorrectors": 2},
+        "boundaryConditions": {
+            "U": {"ymax": {"type": "fixedValue", "value": [1.0, 0.0, 0.0]},
+                  "ymin": {"type": "fixedValue", "value": zero},
+                  "xmin": {"type": "fixedValue", "value": zero},
+                  "xmax": {"type": "fixedValue", "value": zero}},
+            "p": {k: {"type": "zeroGradient"}
+                  for k in ("xmin", "xmax", "ymin", "ymax")}},
+        "initialFields": {"U": zero, "p": 0.0},
+        "primalLinearSolver": {"pMaxIters": 400, "pRelTol": 1e-12,
+                               "uMaxIters": 200, "uRelTol": 1e-12},
+        "function": {
+            "lidF": {"type": "force", "patches": ["ymax"],
+                     "directionMode": "fixedDirection",
+                     "direction": [1.0, 0.0, 0.0], "scale": 1.0,
+                     "timeOp": "average", "timeOpFracStart": 0.4}},
+        "adjEqnOption": {"gmresRelTol": 1e-11, "gmresRestart": 200,
+                         "gmresMaxIters": 1000, "pcType": "segregated"},
+        "normalizeStates": {"U": 1.0, "p": 0.5, "phi": 1.0},
+        "meshFaceLayout": "diaDense"}
+    opts.update(over)
+    return opts
+
+
+# the full-width unsteady cavity (phase 11): a 0.1 m box at 512x512, lid
+# 1 m/s, nu 1e-4 (Re 1000), deltaT 1e-4 (lid Courant number 0.51), 20
+# Euler steps of 4 outer and 2 pressure correctors; the reverse sweeps
+# cap each step's FGMRES at PIMPLE_GMRES iterations. At a lid Courant
+# number of 2.05 (deltaT 4e-4) the p solves' 100-iteration cap leaves too
+# much continuity error for 4 outer correctors: the state turns NaN by
+# step 7 (f32, on the card and on the CPU), and with a 400-iteration cap
+# the lid force flips sign from step to step
+PIMPLE_STEPS = 20
+PIMPLE_DT = 1e-4
+PIMPLE_GMRES = 20
+PIMPLE_SEG = 5
+
+
+def pimple_full_options():
+    return pimple_cavity_options(
+        transportProperties={"nu": 1e-4}, deltaT=PIMPLE_DT,
+        endTime=PIMPLE_STEPS * PIMPLE_DT,
+        pimple={"nOuterCorrectors": 4, "nCorrectors": 2},
+        primalLinearSolver={"pMaxIters": 100, "pRelTol": 1e-6,
+                            "uMaxIters": 20, "uRelTol": 1e-6},
+        adjEqnOption={"gmresRelTol": 1e-12, "gmresAbsTol": 1e-30,
+                      "gmresRestart": PIMPLE_GMRES,
+                      "gmresMaxIters": PIMPLE_GMRES,
+                      "pcType": "segregated"})
+
+
+# the transonic bump (phase 10): tests/test_hisa.py:make_hisa's options on
+# its channel at 1024x256, f32; HISA_LF laxFriedrichs then HISA_AUSM
+# AUSMPlusUp PTC iterations, each full GMRES capped at HISA_INNER
+HISA_NX, HISA_NY = 1024, 256
+HISA_MACH, HISA_T, HISA_P = 0.675, 300.0, 1.0e5
+HISA_UIN = HISA_MACH * math.sqrt(GAMMA * R_GAS * HISA_T)
+HISA_LF = 8
+HISA_AUSM = 6
+HISA_INNER = 80
+HISA_ADJ = 60
+
+
+def bump_channel(box, nx, ny):
+    """tests/test_hisa.py:bump_channel: [0,3]x[0,1] with a Gaussian bump
+    of height 0.06 on the lower wall."""
+    pts, topo = box(nx, ny, 1, (3.0, 1.0, 0.05),
+                    kinds={"zmin": "empty", "zmax": "empty", "ymin": "wall",
+                           "ymax": "wall"})
+    import numpy
+    pts = numpy.array(pts)
+    x, y = pts[:, 0], pts[:, 1]
+    pts[:, 1] = y + 0.06 * numpy.exp(-((x - 1.5) / 0.4) ** 2) * (1.0 - y)
+    return pts, topo
+
+
+def hisa_options():
+    uin = [HISA_UIN, 0.0, 0.0]
+    return {
+        "solverName": "DAHisaFoam",
+        "turbulenceModel": "None",
+        "hisa": {"inviscid": True, "fluxScheme": "AUSMPlusUp", "cfl": 5.0,
+                 "cflMax": 1e4, "innerIters": HISA_INNER,
+                 "stage1MaxIters": HISA_LF},
+        "transportProperties": {"R": R_GAS, "gamma": GAMMA},
+        "boundaryConditions": {
+            "U": {"xmin": {"type": "fixedValue", "value": uin},
+                  "xmax": {"type": "zeroGradient"},
+                  "ymin": {"type": "slip"}, "ymax": {"type": "slip"}},
+            "p": {"xmin": {"type": "zeroGradient"},
+                  "xmax": {"type": "fixedValue", "value": HISA_P},
+                  "ymin": {"type": "zeroGradient"},
+                  "ymax": {"type": "zeroGradient"}},
+            "T": {"xmin": {"type": "fixedValue", "value": HISA_T},
+                  "xmax": {"type": "zeroGradient"},
+                  "ymin": {"type": "zeroGradient"},
+                  "ymax": {"type": "zeroGradient"}}},
+        "initialFields": {"U": uin, "p": HISA_P, "T": HISA_T},
+        "primalMinResTol": 1e-7,
+        "primalMinIters": HISA_AUSM, "primalMaxIters": HISA_AUSM,
+        "function": {
+            "CDp": {"type": "force", "patches": ["ymin"],
+                    "directionMode": "fixedDirection",
+                    "direction": [1.0, 0.0, 0.0], "scale": 1.0}},
+        "adjEqnOption": {"gmresRelTol": 1e-12, "gmresRestart": HISA_ADJ,
+                         "gmresMaxIters": HISA_ADJ, "gmresAbsTol": 1e-30,
+                         "pcType": "blockJacobian", "pcInnerIters": 12},
+        "normalizeStates": {"U": 240.0, "p": 1e5, "T": 300.0},
+        "primalVarBounds": {"pMin": 1e3, "TMin": 50.0},
+        "meshFaceLayout": "diaDense"}
+
+
+# phase 11b: DARhoPimpleFoam on phase 9's case, RHO_PIMPLE_STEPS steps
+RHO_PIMPLE_STEPS = 5
+RHO_PIMPLE_DT = 1e-4
 
 
 KINF = 1.5 * (0.05 * 1.0) ** 2      # 5% turbulence intensity at |U_inf| 1
@@ -1006,11 +1162,14 @@ def _golden_want(name):
         return json.load(fh)[name]
 
 
-def _hold_golden(tag, got, want):
-    """Objectives at rel 1e-8, totals (keys d...) at 1e-6; a summary."""
+def _hold_golden(tag, got, want, floor=0.0):
+    """Objectives at rel 1e-8, totals (keys d...) at 1e-6, each times
+    max(floor, |golden|) (floor 1: tests/test_golden.py's bar); a
+    summary."""
     rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
     for k, r in rel.items():
-        check(r <= (1e-6 if k.startswith("d") else 1e-8),
+        bar = 1e-6 if k.startswith("d") else 1e-8
+        check(abs(got[k] - want[k]) <= bar * max(floor, abs(want[k])),
               f"{tag} {k} off golden by {r:.2e}")
     return ", ".join(f"{k} {got[k]!r} (rel {rel[k]:.2e})" for k in want)
 
@@ -1598,6 +1757,293 @@ def phase_rho_transonic(torch, dk, adjsolver, make_solver, s9, st9):
     return counts
 
 
+def phase_golden_pimple(torch, dk, make_solver, box):
+    """Phase 4i: golden pimple_unsteady (8x8 cavity, 5 Euler steps, timeOp
+    average; f64, dense layout): the history, lidF_avg and the reverse
+    sweep's totals against tests/golden/values.json with
+    tests/test_golden.py's bars (rel 1e-8 / 1e-6 x max(1, |golden|))."""
+    pts, topo = box(8, 8, 1, (0.1, 0.1, 0.01),
+                    kinds={"zmin": "empty", "zmax": "empty", "xmin": "wall",
+                           "xmax": "wall", "ymin": "wall", "ymax": "wall"})
+    s = make_solver(pimple_cavity_options(), topo, pts, device=DEVICE,
+                    dtype=torch.float64)
+    check(s.topo.dia_dense() is not None, "pimple golden runs dense")
+    x = s.make_inputs()
+    dk.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, hist = s.solve_primal_history(s.init_state(), x)
+        J, _ = s.eval_function_history("lidF", hist, x)
+    tot, resids = s.solve_unsteady_adjoint(hist, x, "lidF")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(dk.COUNTS)
+    got = {"lidF_avg": float(J), "dlidF_dnu": float(tot["params"]["nu"]),
+           "dlidF_dpoints_norm": float(torch.linalg.norm(tot["points"]))}
+    msg = _hold_golden("pimple_unsteady", got,
+                       _golden_want("pimple_unsteady"), floor=1.0)
+    adj = s.solve_stats["adjoint"]
+    say(f"[pimple-golden] 8x8 f64 dense: {s.n_steps} steps x "
+        f"{s.n_outer} outer correctors (U {s.solve_stats['U'][1]} and p "
+        f"{s.solve_stats['p'][1]} Krylov iterations); reverse sweep "
+        f"{adj[1]} FGMRES iterations over {adj[0]} steps (segregated PC), "
+        f"resids max {float(resids.max()):.3e}; {dt:.1f} s in all; {msg}; "
+        f"launch counts {counts}")
+    check(float(resids.max()) < 1e-9,
+          f"pimple golden sweep resids {resids.tolist()}")
+    check_counts(counts, "golden pimple_unsteady",
+                 PRIMAL_KERNELS + ("dia_matvec_t", "dia_matvec_multi_t"))
+    return counts
+
+
+def phase_hisa_full(torch, dk, make_solver, box):
+    """Phase 10: DAHisaFoam on the 1024x256 transonic bump (f32, dense):
+    HISA_LF laxFriedrichs and HISA_AUSM AUSMPlusUp PTC iterations, then
+    one HISA_ADJ-iteration adjoint FGMRES cycle for CDp with the
+    transposed block PC, and the totals. No banded matvec runs here.
+    Returns (primal counts, adjoint counts)."""
+    t0 = time.perf_counter()
+    pts, topo = bump_channel(box, HISA_NX, HISA_NY)
+    s = make_solver(hisa_options(), topo, pts, device=DEVICE,
+                    dtype=torch.float32)
+    check(s.topo.dia_dense() is not None, "the bump runs dense")
+    x = s.make_inputs()
+    st0 = s.init_state()
+    geom = s.geometry(x)
+    torch.cuda.synchronize()
+    say(f"[hisa] {HISA_NX}x{HISA_NY} bump channel, Mach {HISA_MACH} "
+        f"(U_in {HISA_UIN:.4f} m/s), inviscid AUSMPlusUp: set-up "
+        f"{time.perf_counter() - t0:.1f} s; {s.topo.n_cells} cells")
+
+    def block_inverse_error(state, cfl):
+        """max over cells of max|I - D D^-1| of the block PC's diagonal."""
+        with torch.no_grad():
+            D = s._block_jac(state, x, geom, s._inv_dtau(state, x, geom,
+                                                          cfl))[2]
+            eye = torch.eye(5, dtype=D.dtype, device=D.device)
+            return float((eye - D @ torch.linalg.inv(D)).abs().max())
+
+    err0 = block_inverse_error(st0, 5.0)
+    dk.reset_counts()
+    s.solve_stats.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, info = s.run_primal(st0, x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(dk.COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    n_ptc, n_gmres = s.solve_stats["ptc_gmres"]
+    with torch.no_grad():
+        mach = torch.linalg.norm(st["U"], dim=-1) \
+            / torch.sqrt(GAMMA * R_GAS * st["T"])
+    err1 = block_inverse_error(st, s.last_cfl)
+    say(f"[hisa] {info.iters} PTC iterations ({HISA_LF} laxFriedrichs, "
+        f"{HISA_AUSM} AUSMPlusUp) in {dt:.2f} s = {dt / n_ptc * 1e3:.1f} ms "
+        f"per PTC iteration; res / res0 {info.max_res:.4e}; final CFL "
+        f"{s.last_cfl:.4g}; GMRES {n_gmres / n_ptc:.1f} iterations per "
+        f"Newton step (cap {HISA_INNER}); Mach in [{float(mach.min()):.4f},"
+        f" {float(mach.max()):.4f}]; p in [{float(st['p'].min()):.1f}, "
+        f"{float(st['p'].max()):.1f}]; largest |I - D D^-1| of the 5x5 "
+        f"block inverse {err0:.3e} (start, CFL 5), {err1:.3e} (end); peak "
+        f"device memory {peak:.0f} MiB")
+    check(info.iters == HISA_LF + HISA_AUSM, f"hisa iterations: {info}")
+    check(s.states_valid(st), "hisa state is not finite/valid")
+    check(float(mach.max()) > HISA_MACH,
+          f"no acceleration over the bump: max Mach {float(mach.max())}")
+    check(sum(counts.values()) == 0, f"hisa primal launched {counts}")
+
+    state = {k: v.detach() for k, v in st.items()}
+    dk.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psi, ainfo = s.solve_adjoint(state, x, "CDp")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    tot = s.total_derivative(state, x, "CDp", psi)
+    torch.cuda.synchronize()
+    tt = time.perf_counter() - t0
+    adj = dict(dk.COUNTS)
+    n = max(ainfo.iters, 1)
+    duin = float(tot["bc"]["U"]["xmin"][0])
+    dpts = float(torch.linalg.norm(tot["points"]))
+    say(f"[hisa-adjoint] {ainfo.iters} FGMRES iterations (transposed "
+        f"block PC, 12 sweeps) in {dt:.2f} s = {dt / n * 1e3:.1f} ms per "
+        f"iteration (the PC build and the residual graph's recording "
+        f"included); resid0 {ainfo.resid0:.6e} -> resid {ainfo.resid:.6e};"
+        f" peak device memory {peak:.0f} MiB; total_derivative {tt:.2f} s:"
+        f" dCDp/dU_in {duin!r}, ||dCDp/dpoints|| {dpts!r}")
+    check(all(bool(torch.isfinite(v).all()) for v in psi.values()),
+          "hisa psi is not finite")
+    check(math.isfinite(duin) and math.isfinite(dpts),
+          "hisa totals not finite")
+    check(ainfo.iters == HISA_ADJ, f"hisa adjoint: {ainfo}")
+    check(sum(adj.values()) == 0, f"hisa adjoint launched {adj}")
+    return counts, adj, (s, x, state)
+
+
+def phase_pimple_full(torch, dk, make_solver, box):
+    """Phase 11: DAPimpleFoam on the 512x512 cavity at Re 1000 (f32,
+    dense), PIMPLE_STEPS Euler steps, then the in-memory reverse sweep
+    and the checkpointed one (seg_len PIMPLE_SEG) from the same inputs;
+    their totals must agree at rel 1e-4. Returns the launch counts of
+    (primal, in-memory sweep, checkpointed sweep) and (solver, inputs, the
+    history's last two states) for --profile."""
+    from dafoam_tpu_torch.utils import tree
+    t0 = time.perf_counter()
+    pts, topo = box(FULL, FULL, 1, (0.1, 0.1, 0.01),
+                    kinds={"zmin": "empty", "zmax": "empty", "xmin": "wall",
+                           "xmax": "wall", "ymin": "wall", "ymax": "wall"})
+    s = make_solver(pimple_full_options(), topo, pts, device=DEVICE,
+                    dtype=torch.float32)
+    x = s.make_inputs()
+    st0 = s.init_state()
+    torch.cuda.synchronize()
+    say(f"[pimple] {FULL}x{FULL} cavity, Re 1000, deltaT {PIMPLE_DT} (lid "
+        f"Courant {PIMPLE_DT * FULL / 0.1:.2f}): set-up "
+        f"{time.perf_counter() - t0:.1f} s; {s.topo.n_cells} cells")
+    dk.reset_counts()
+    s.solve_stats.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, hist = s.solve_primal_history(st0, x)
+        J, vals = s.eval_function_history("lidF", hist, x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(dk.COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    per = {k: v[1] / v[0] for k, v in s.solve_stats.items()}
+    stT = {k: v[-1] for k, v in hist.items()}
+    say(f"[pimple] {s.n_steps} steps in {dt:.2f} s = "
+        f"{dt / s.n_steps * 1e3:.1f} ms per time step; lidF per step "
+        f"{vals.tolist()}, average {float(J)!r}; Krylov iterations per "
+        "solve: " + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+        + f"; max |U| {float(stT['U'].norm(dim=-1).max()):.4f}; peak "
+        f"device memory {peak:.0f} MiB; launch counts {counts}")
+    check(s.states_valid(stT), "pimple state is not finite/valid")
+    check(all(math.isfinite(v) for v in vals.tolist()), "lidF not finite")
+    check_counts(counts, "pimple primal")
+    tail = {k: v[-2:].clone() for k, v in hist.items()}
+
+    out = [counts]
+    totals = []
+    for tag in ("in-memory", "checkpointed"):
+        s.solve_stats.clear()
+        dk.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if tag == "in-memory":
+            tot, resids = s.solve_unsteady_adjoint(hist, x, "lidF")
+        else:
+            del hist
+            tot, resids, _ = s.solve_unsteady_adjoint_checkpointed(
+                st0, x, "lidF", seg_len=PIMPLE_SEG)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = dict(dk.COUNTS)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        adj = s.solve_stats["adjoint"]
+        say(f"[pimple-adjoint] {tag} sweep: {dt:.2f} s = "
+            f"{dt / s.n_steps * 1e3:.1f} ms per reverse step"
+            + (" (the segments' recomputed steps included)"
+               if tag != "in-memory" else "")
+            + f"; {adj[1] / adj[0]:.1f} FGMRES iterations per reverse step "
+            f"(segregated PC, cap {PIMPLE_GMRES}); resids "
+            f"[{float(resids.min()):.3e}, {float(resids.max()):.3e}]; "
+            f"dlidF/dnu {float(tot['params']['nu'])!r}, ||dlidF/dpoints|| "
+            f"{float(torch.linalg.norm(tot['points']))!r}; peak device "
+            f"memory {peak:.0f} MiB; launch counts {c}")
+        flat = torch.cat([a.reshape(-1) for a in tree.leaves(tot)])
+        check(bool(torch.isfinite(flat).all()),
+              f"pimple {tag} totals not finite")
+        check_counts(c, f"pimple {tag} sweep",
+                     ("dia_matvec_t", "dia_matvec_multi_t"))
+        totals.append(flat)
+        out.append(c)
+    rel = float((totals[0] - totals[1]).abs().max()
+                / totals[0].abs().max())
+    say(f"[pimple-adjoint] in-memory vs checkpointed totals: max rel "
+        f"{rel:.3e}")
+    check(rel <= 1e-4, f"the two sweeps disagree: rel {rel:.3e}")
+    return out, (s, x, tail)
+
+
+def phase_rho_pimple(torch, dk, make_solver, s9, st9):
+    """Phase 11b: DARhoPimpleFoam on phase 9's 512x512 O-mesh case (its
+    options plus deltaT RHO_PIMPLE_DT), RHO_PIMPLE_STEPS steps from phase
+    9's state. Returns the launch counts."""
+    s = make_solver(rho_options(solverName="DARhoPimpleFoam",
+                                deltaT=RHO_PIMPLE_DT,
+                                endTime=RHO_PIMPLE_STEPS * RHO_PIMPLE_DT),
+                    s9.topo, s9.points.cpu().numpy(), device=DEVICE,
+                    dtype=torch.float32)
+    x = s.make_inputs()
+    dk.reset_counts()
+    s.solve_stats.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        st, hist = s.solve_primal_history(st9, x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(dk.COUNTS)
+    cd = float(s.run_function("CD", st, x))
+    per = {k: v[1] / v[0] for k, v in s.solve_stats.items()}
+    with torch.no_grad():
+        rho = s.rho_of(st, x)
+    say(f"[rho-pimple] {FULL}x{FULL} f32 DARhoPimpleFoam: "
+        f"{s.n_steps} steps (deltaT {RHO_PIMPLE_DT}, {s.n_outer} outer x "
+        f"{s.n_corr} pressure correctors) in {dt:.2f} s = "
+        f"{dt / s.n_steps * 1e3:.1f} ms per step; CD {cd!r}; rho in "
+        f"[{float(rho.min()):.4f}, {float(rho.max()):.4f}]; Krylov "
+        "iterations per solve: " + ", ".join(f"{k} {v:.2f}"
+                                             for k, v in per.items())
+        + f"; launch counts {counts}")
+    check(hist["U"].shape[0] == RHO_PIMPLE_STEPS + 1, "rho pimple history")
+    check(s.states_valid(st), "rho pimple state is not finite/valid")
+    check(math.isfinite(cd), f"rho pimple CD not finite: {cd}")
+    check_counts(counts, "rho pimple primal")
+    return counts
+
+
+def profile_unsteady(torch, hisa_run, pimple_run):
+    """--profile: one AUSMPlusUp PTC iteration of phase 10 (its initial
+    residual included), one PIMPLE time step and one reverse step of
+    phase 11."""
+    from dafoam_tpu_torch.adjoint.unsteady import at, unsteady_adjoint_totals
+    hs, hx, hst = hisa_run
+    h = dict(hs.option["hisa"], sequenceFlux=False)
+    with overridden(hs.option, hisa=h, primalMinIters=1, primalMaxIters=1):
+        profile_call(torch, f"one AUSMPlusUp PTC iteration ({HISA_NX}x"
+                     f"{HISA_NY} bump, GMRES cap {HISA_INNER})",
+                     lambda: hs.run_primal(hst, hx))
+    ps, px, tail = pimple_run
+    geom = ps.geometry(px)
+    W = at(tail, 1)
+
+    def step():
+        with torch.no_grad():
+            ps._step(W, px, geom, t=ps.dt)
+
+    profile_call(torch, f"one PIMPLE time step ({FULL}x{FULL} cavity)", step)
+    kw = ps._sweep_kw(px, "lidF", torch.zeros(1, dtype=ps.dtype,
+                                               device=ps.device))
+    profile_call(torch, f"one reverse step ({FULL}x{FULL} cavity, FGMRES "
+                 f"cap {PIMPLE_GMRES}, segregated PC)",
+                 lambda: unsteady_adjoint_totals(
+                     ps.residuals_unsteady,
+                     lambda w, x, n: ps.eval_function("lidF", w, x),
+                     tail, **kw))
+
+
 def profile_call(torch, label, fn):
     """One call of ``fn`` under the profiler: top kernels by device time,
     DIA kernels, host syncs and the device's busy share of the call."""
@@ -1680,6 +2126,7 @@ def main():
     phase_golden_scalar(torch, dk, make_solver, box_hex_mesh)
     phase_golden_heat(torch, dk, make_solver, box_hex_mesh)
     phase_golden_rho(torch, dk, make_solver, box_hex_mesh)
+    phase_golden_pimple(torch, dk, make_solver, box_hex_mesh)
 
     st, res1, info, dt, counts, cd = run_full(torch, dk, s, inputs, st0)
     per = {k: v[1] / ITERS for k, v in s.solve_stats.items()}
@@ -1715,6 +2162,11 @@ def main():
         torch, dk, make_solver, s)
     rhoc_counts = phase_rho_transonic(torch, dk, adjsolver, make_solver,
                                       s9, st9)
+    hisa_counts, hisa_adj_counts, hisa_run = phase_hisa_full(
+        torch, dk, make_solver, box_hex_mesh)
+    (pimple_counts, pimple_adj_counts, pimple_ck_counts), pimple_run = \
+        phase_pimple_full(torch, dk, make_solver, box_hex_mesh)
+    rho_pimple_counts = phase_rho_pimple(torch, dk, make_solver, s9, st9)
     phase_kernel_times(torch, dk, real, stats)
 
     if args.profile:
@@ -1731,6 +2183,7 @@ def main():
             profile_call(torch, "one compressible SIMPLE iteration "
                          "(DARhoSimpleFoam + SA)",
                          lambda: s9.run_primal(st9, inputs9))
+        profile_unsteady(torch, hisa_run, pimple_run)
 
     paths = {"primal": counts, "primal_line_pc": line_counts,
              "primal_mg_pc": mg_counts,
@@ -1743,7 +2196,12 @@ def main():
              **{f"{k}_primal": v for k, v in model_counts.items()},
              "rho_primal": rho_counts,
              "rho_residual_adjoint_segregated": rho_adj_counts,
-             "rhoC_primal": rhoc_counts}
+             "rhoC_primal": rhoc_counts,
+             "hisa_primal": hisa_counts, "hisa_adjoint": hisa_adj_counts,
+             "pimple_primal": pimple_counts,
+             "pimple_adjoint": pimple_adj_counts,
+             "pimple_adjoint_checkpointed": pimple_ck_counts,
+             "rho_pimple_primal": rho_pimple_counts}
     rows = []
     for name, meta in KERNELS.items():
         st_k = stats[name]

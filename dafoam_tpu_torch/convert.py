@@ -10,6 +10,11 @@ state dict (U, p, T, G, D, the volumetric or mass flux phi, the model
 states), and ``state_to_numpy`` is its inverse. The same two carry the
 fixed-point adjoint's psibar (a state-shaped dict) either way.
 
+``history_from_numpy``/``history_to_numpy`` carry an unsteady solver's
+history: a dict of (T+1, ...) arrays stacked over the time steps, the
+initial condition at index 0 (``solve_primal_history`` of either
+package), so each package's reverse sweep can run on the other's primal.
+
 ``recycle_from_numpy``/``recycle_to_numpy`` carry the deflated GMRES
 recycle space (aug0/return_aug), a (k, n_flat) array over the state
 flattened in sorted-key order: ``dafoam_tpu`` flattens with
@@ -49,6 +54,15 @@ def state_from_numpy(state: dict, device, dtype) -> dict:
 
 def state_to_numpy(state: dict) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def history_from_numpy(hist: dict, device, dtype) -> dict:
+    """{state: (T+1, ...) numpy} -> the same dict of tensors."""
+    return state_from_numpy(hist, device, dtype)
+
+
+def history_to_numpy(hist: dict) -> dict:
+    return state_to_numpy(hist)
 
 
 def recycle_from_numpy(aug, device, dtype) -> torch.Tensor:

@@ -163,15 +163,22 @@ class KOmegaSST(TurbulenceModel):
                 "omega": fvx.relax(Mw, state["omega"], relax, self.topo)}
 
     def correct(self, state, inputs, geom, phi, gradU=None,
-                rel_tol=0.1, max_iters=100, relax=0.7):
-        """omega first, then k with the new omega (the reference order)."""
+                rel_tol=0.1, max_iters=100, relax=0.7, dt=None, old=None):
+        """omega first, then k with the new omega (the reference order);
+        with ``dt`` each matrix gains the implicit Euler term against
+        ``old`` (the unsteady solvers)."""
         bounds = self.option["primalVarBounds"]
         _, Mw = self._assemble(state, inputs, geom, phi, gradU)
+        if dt is not None:
+            Mw = Mw + fvm.ddt(geom, self.topo, state["omega"],
+                              old["omega"], dt)
         Mw = fvx.relax(Mw, state["omega"], relax, self.topo)
         w_new = self._solve("omega", Mw, state, rel_tol, max_iters)
         st = dict(state, omega=clip(w_new, bounds["omegaMin"],
                                     bounds["omegaMax"]))
         Mk, _ = self._assemble(st, inputs, geom, phi, gradU)
+        if dt is not None:
+            Mk = Mk + fvm.ddt(geom, self.topo, st["k"], old["k"], dt)
         Mk = fvx.relax(Mk, st["k"], relax, self.topo)
         k_new = self._solve("k", Mk, st, rel_tol, max_iters)
         return dict(st, k=clip(k_new, bounds["kMin"], bounds["kMax"]))

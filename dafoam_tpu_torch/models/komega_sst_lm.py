@@ -237,9 +237,10 @@ class KOmegaSSTLM(KOmegaSST):
         return out
 
     def correct(self, state, inputs, geom, phi, gradU=None,
-                rel_tol=0.1, max_iters=100, relax=0.7):
+                rel_tol=0.1, max_iters=100, relax=0.7, dt=None, old=None):
         """The reference order: ReThetat, gammaInt, then SST's omega and
-        k."""
+        k (only those two take the unsteady ``dt`` term, as in
+        dafoam_tpu)."""
         M_ret, _ = self._assemble_lm(state, inputs, geom, phi, gradU)
         M_ret = fvx.relax(M_ret, state["ReThetat"], relax, self.topo)
         ret_new = self._solve("ReThetat", M_ret, state, rel_tol, max_iters)
@@ -250,4 +251,4 @@ class KOmegaSSTLM(KOmegaSST):
         st = dict(st, gammaInt=clip(gam_new, 0.02, 1.0))
         return super().correct(st, inputs, geom, phi, gradU=gradU,
                                rel_tol=rel_tol, max_iters=max_iters,
-                               relax=relax)
+                               relax=relax, dt=dt, old=old)

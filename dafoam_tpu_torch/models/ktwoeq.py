@@ -63,12 +63,19 @@ class _TwoEq(TurbulenceModel):
         return clip(sol, b[name + "Min"], b[name + "Max"])
 
     def correct(self, state, inputs, geom, phi, gradU=None, rel_tol=0.1,
-                max_iters=100, relax=0.7):
+                max_iters=100, relax=0.7, dt=None, old=None):
+        """The second state, then k; with ``dt`` each matrix gains the
+        implicit Euler term against ``old`` (the unsteady solvers)."""
         second = self.model_states[1]
         _, M2 = self._mats(state, inputs, geom, phi, gradU)
+        if dt is not None:
+            M2 = M2 + fvm.ddt(geom, self.topo, state[second], old[second],
+                              dt)
         st = dict(state, **{second: self._solve_one(
             second, M2, state, relax, rel_tol, max_iters)})
         Mk, _ = self._mats(st, inputs, geom, phi, gradU)
+        if dt is not None:
+            Mk = Mk + fvm.ddt(geom, self.topo, st["k"], old["k"], dt)
         return dict(st, k=self._solve_one("k", Mk, st, relax, rel_tol,
                                           max_iters))
 

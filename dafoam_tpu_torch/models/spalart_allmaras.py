@@ -136,9 +136,14 @@ class SpalartAllmaras(TurbulenceModel):
         return {"nuTilda": fvx.relax(M, state["nuTilda"], relax, self.topo)}
 
     def correct(self, state, inputs, geom, phi, gradU=None,
-                rel_tol=0.1, max_iters=100, relax=0.7):
-        M = self.equations(state, inputs, geom, phi, gradU,
-                           relax)["nuTilda"]
+                rel_tol=0.1, max_iters=100, relax=0.7, dt=None, old=None):
+        """One nuTilda solve; with ``dt`` the transport matrix gains the
+        implicit Euler term against ``old`` (the unsteady solvers)."""
+        M = self._assemble(state, inputs, geom, phi, gradU)
+        if dt is not None:
+            M = M + fvm.ddt(geom, self.topo, state["nuTilda"],
+                            old["nuTilda"], dt)
+        M = fvx.relax(M, state["nuTilda"], relax, self.topo)
         sol = self._solve("nuTilda", M, state, rel_tol, max_iters)
         bounds = self.option["primalVarBounds"]
         sol = torch.clamp(sol, bounds["nuTildaMin"], bounds["nuTildaMax"])

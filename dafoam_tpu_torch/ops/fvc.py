@@ -22,12 +22,23 @@ def interpolate(geom, topo, psi: torch.Tensor, psi_b: torch.Tensor):
     return torch.cat([w * own + (1.0 - w) * nei, psi_b], dim=0)
 
 
-def snGrad(geom, topo, psi, sng_b):
-    """Uncorrected surface-normal gradient on internal faces + the given
-    boundary snGrad (the only form the SIMPLE slice calls)."""
+def snGrad(geom, topo, psi, sng_b, corrected=False, grad_psi=None,
+           grad_psi_b=None):
+    """Surface-normal gradient on internal faces + the given boundary
+    snGrad. corrected=True adds the non-orthogonal correction
+    k_f . interp(grad psi) (OpenFOAM correctedSnGrad) with the corrected
+    delta coefficients; it needs ``grad_psi`` and its boundary values."""
     ni = topo.n_internal
-    d = geom.delta_coeffs[:ni].reshape((-1,) + (1,) * (psi.ndim - 1))
+    dc = geom.nonorth_dc[:ni] if corrected else geom.delta_coeffs[:ni]
+    d = dc.reshape((-1,) + (1,) * (psi.ndim - 1))
     g = d * (cell_to_face_nei(psi, topo) - cell_to_face_own(psi, topo))
+    if corrected:
+        if grad_psi is None:
+            raise ValueError("corrected snGrad needs grad_psi")
+        gf = interpolate(geom, topo, grad_psi, grad_psi_b)[:ni]
+        # psi scalar: grad (nc,3) -> (ni,); psi vector: (nc,3,3) -> (ni,3)
+        cv = geom.corr_vec[:ni].reshape((-1, 3) + (1,) * (gf.ndim - 2))
+        g = g + (cv * gf).sum(dim=1)
     return torch.cat([g, sng_b], dim=0)
 
 

@@ -6,6 +6,9 @@ from dafoam_tpu_torch.mesh.topology import to_dia_dense
 from dafoam_tpu_torch.option import DAOption
 from dafoam_tpu_torch.solvers.base import DASolverBase, PrimalInfo
 from dafoam_tpu_torch.solvers.heat_transfer import DAHeatTransferFoam
+from dafoam_tpu_torch.solvers.hisa import DAHisaFoam
+from dafoam_tpu_torch.solvers.pimple import DAPimpleFoam
+from dafoam_tpu_torch.solvers.rho_pimple import DARhoPimpleFoam
 from dafoam_tpu_torch.solvers.rho_simple import (DARhoSimpleCFoam,
                                                  DARhoSimpleFoam,
                                                  DATurboFoam)
@@ -17,12 +20,10 @@ from dafoam_tpu_torch.solvers.topo_cht import DATopoChtFoam
 _SOLVER_REGISTRY = {c.__name__: c for c in (
     DAScalarTransportFoam, DAHeatTransferFoam, DASimpleFoam,
     DASolidDisplacementFoam, DARhoSimpleFoam, DARhoSimpleCFoam, DATurboFoam,
-    DATopoChtFoam)}
-# solvers of dafoam_tpu that the port does not have yet (ROADMAP.md P8
-# DAHisaFoam, P9)
-_NOT_PORTED = (
-    "DAHisaFoam", "DAPimpleFoam", "DARhoPimpleFoam", "DAPimpleDyMFoam",
-    "DAInterFoam", "DAIrkPimpleFoam", "DATimeSpectralScalarFoam")
+    DATopoChtFoam, DAHisaFoam, DAPimpleFoam, DARhoPimpleFoam)}
+# solvers of dafoam_tpu that the port does not have yet (ROADMAP.md P9)
+_NOT_PORTED = ("DAPimpleDyMFoam", "DAInterFoam", "DAIrkPimpleFoam",
+               "DATimeSpectralScalarFoam")
 
 
 def make_solver(option, topo, points, *, device, dtype):
@@ -64,4 +65,5 @@ def make_solver(option, topo, points, *, device, dtype):
 __all__ = ["DASolverBase", "PrimalInfo", "DAScalarTransportFoam",
            "DAHeatTransferFoam", "DASimpleFoam", "DASolidDisplacementFoam",
            "DARhoSimpleFoam", "DARhoSimpleCFoam", "DATurboFoam",
-           "DATopoChtFoam", "make_solver"]
+           "DATopoChtFoam", "DAHisaFoam", "DAPimpleFoam", "DARhoPimpleFoam",
+           "make_solver"]

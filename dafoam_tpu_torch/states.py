@@ -1,9 +1,11 @@
 """State registry and flat-vector layout (port of ``dafoam_tpu.states``).
 
-Which fields are states, and how they map to one flat vector, following
-the reference's documented ordering (DAField.C ofField2State):
-volVectorStates (cell-major, 3 comps), then volScalarStates, then
-modelStates, then surfaceScalarStates.
+Which fields are states, and how they map to one flat vector. The default
+ordering follows the reference's documented state-major layout (DAField.C
+ofField2State): volVectorStates (cell-major, 3 comps), then
+volScalarStates, then modelStates, then surfaceScalarStates. The
+``adjStateOrdering: cell`` variant interleaves the cell-based components
+per cell instead.
 """
 
 from __future__ import annotations
@@ -32,18 +34,27 @@ class StateInfo:
 
 
 class StateLayout:
-    """Pack/unpack between the state dict and one flat vector, in the
-    state-major ordering (``adjStateOrdering: state``)."""
+    """Pack/unpack between the state dict and one flat vector.
+
+    ordering="state" (default): the state-major layout of the module
+    docstring. ordering="cell": the reference's ``adjStateOrdering: cell``
+    (pyDAFoam.py:608): every cell-based component of cell 0 (vector
+    components, volScalars, modelStates), then cell 1, ..., with the
+    surfaceScalarStates appended after the cell block (a face row has no
+    owning cell slot in a flat vector). ``offsets`` is None under the cell
+    ordering: state-major offsets mean nothing there, so a caller that
+    slices by them fails loudly instead of reading the wrong positions.
+    """
 
     def __init__(self, info: StateInfo, n_cells: int, n_faces: int,
                  ordering: str = "state"):
-        if ordering != "state":
-            raise NotImplementedError(
-                f"adjStateOrdering {ordering!r} is not ported yet: it "
-                "arrives with the adjoint slice (ROADMAP.md queue 1, P5)")
+        if ordering not in ("state", "cell"):
+            raise ValueError(f"adjStateOrdering must be 'state' or 'cell', "
+                             f"got {ordering!r}")
         self.info = info
         self.n_cells = n_cells
         self.n_faces = n_faces
+        self.ordering = ordering
         self.sizes = {}
         self.offsets = {}
         off = 0
@@ -54,13 +65,46 @@ class StateLayout:
             self.offsets[name] = off
             off += sz
         self.n_states = off
+        if ordering == "cell":
+            self.offsets = None
+        # components per cell of the cell block (cell ordering)
+        self.cell_comps = sum(3 if kind == "vector" else 1
+                              for _, kind in info.ordered if kind != "face")
+
+    def _cell_names(self):
+        return [(n, k) for n, k in self.info.ordered if k != "face"]
+
+    def _face_names(self):
+        return [n for n, k in self.info.ordered if k == "face"]
 
     def pack(self, state: dict) -> torch.Tensor:
+        if self.ordering == "cell":
+            cols = [state[n] if k == "vector" else state[n][:, None]
+                    for n, k in self._cell_names()]
+            parts = [torch.cat(cols, dim=1).reshape(-1)] if cols else []
+            parts += [state[n].reshape(-1) for n in self._face_names()]
+            return torch.cat(parts)
         return torch.cat([state[name].reshape(-1)
                           for name, _ in self.info.ordered])
 
     def unpack(self, vec: torch.Tensor) -> dict:
         out = {}
+        if self.ordering == "cell":
+            nc = self.n_cells
+            block = vec[:nc * self.cell_comps].reshape(nc, self.cell_comps)
+            col = 0
+            for name, kind in self._cell_names():
+                if kind == "vector":
+                    out[name] = block[:, col:col + 3]
+                    col += 3
+                else:
+                    out[name] = block[:, col]
+                    col += 1
+            off = nc * self.cell_comps
+            for name in self._face_names():
+                out[name] = vec[off:off + self.n_faces]
+                off += self.n_faces
+            return out
         for name, kind in self.info.ordered:
             off, sz = self.offsets[name], self.sizes[name]
             chunk = vec[off:off + sz]

@@ -77,7 +77,7 @@ def test_solves_ran_through_the_dia_path(runs):
 def test_unported_parts_raise(runs):
     _, _, _, ts = runs
     from dafoam_tpu_torch.solvers import make_solver
-    for name in ("DAPimpleFoam", "DAHisaFoam"):
+    for name in ("DAPimpleDyMFoam", "DAInterFoam"):
         opts = naca_options("canonical", primalMaxIters=1, solverName=name)
         with pytest.raises(NotImplementedError):
             make_solver(opts, ts.topo, ts.points.numpy(), device="cpu",
