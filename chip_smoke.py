@@ -130,7 +130,25 @@ case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
    in the primal, K3a in the sweeps, no plain version;
 11b. DARhoPimpleFoam: RHO_PIMPLE_STEPS steps of phase 9's case (deltaT
    RHO_PIMPLE_DT) from phase 9's state: finite and valid, K1/K2 launched,
-   no plain version.
+   no plain version;
+12. DAPimpleDyMFoam: the plunging NACA0012 on phase 5's O-mesh with its
+   SA options, from phase 5's state (f32, dense): the SCL residual of
+   step 1's mesh flux, DYM_STEPS ALE steps (deltaT DYM_DT) and the
+   in-memory reverse sweep of the cycle-averaged CD, FGMRES capped at
+   UNSTEADY_GMRES per step (segregated PC); finite, K1/K2 in the primal,
+   K3a in the sweep, no plain version;
+13. DAIrkPimpleFoam: IRK_STEPS Radau IIA steps (4 sweeps) of phase 11's
+   cavity and the in-memory sweep with the two-stage segregated PC; as 12;
+14. DAInterFoam: the dam break of tests/test_interfoam.py at INTER_NX x
+   INTER_NY, INTER_STEPS steps of INTER_DT: alpha in [-1e-5, 1 + 1e-5],
+   the water volume kept to rel 1e-5, the centre of mass moving right and
+   down; then the in-memory sweep (two-phase segregated PC); K1 in the
+   primal (no predictor solve), K3a in the sweep;
+15. time-spectral DAScalarTransportFoam ("hybrid"): the 1.0 x 0.6 box at
+   FULL x FULL with 5 instances, TS_SWEEPS block Gauss-Seidel sweeps
+   (residual must fall), one TS_GMRES-iteration FGMRES cycle with the
+   lineJacobi PC and the totals (finite); K1 and K3a, no plain version.
+   Phase 15 runs before 14.
 
 ``--profile`` adds a torch.profiler table of one more SIMPLE iteration, of
 one (I - dG^T) product, of one residual-form iteration (a residual vjp
@@ -141,8 +159,8 @@ time step and of one reverse step (phase 11's). The last line of
 standard output is one JSON object with "ok" and the device; the line
 before it repeats the card's name and power limit, and the one before
 that lists every kernel with its launches on the full-width paths
-(phases 5, 5b, 5c, 6, 6b, 6c, 6d, 8, 8b, 9, 9b, 10, 11 and 11b, each
-counted from zero; "launches_by_path" splits them),
+(phases 5, 5b, 5c, 6, 6b, 6c, 6d, 8, 8b, 9, 9b, 10, 11, 11b and 12-15,
+each counted from zero; "launches_by_path" splits them),
 its error against the plain version, its times and its bound. The script
 prints its total wall seconds before those lines.
 """
@@ -593,6 +611,147 @@ def hisa_options():
 RHO_PIMPLE_STEPS = 5
 RHO_PIMPLE_DT = 1e-4
 
+# the plunging NACA0012 (phase 12): phase 5's 512x512 O-mesh and SA options
+# as DAPimpleDyMFoam, the whole mesh in rigid translation along y with
+# amplitude DYM_AMP chords at DYM_FREQ Hz (reduced frequency pi f c/U =
+# pi, peak plunge speed 0.063 U), DYM_STEPS ALE steps of 4 outer and 2
+# pressure correctors from phase 5's state; each reverse step's FGMRES
+# capped at UNSTEADY_GMRES (segregated PC). deltaT: the PIMPLE steps on
+# this O-mesh turn NaN within 10 steps (with or without motion, and so
+# does DAPimpleFoam) at 1e-3 from 128x128 up, at 1e-4 from 256x256 up (the
+# card at 512x512 too) and at 5e-5 at 256x256 (CPU rehearsals, f32, from
+# a 60-iteration SIMPLE state); 1e-5 held at 256x256 and 5e-6 at 512x512.
+# One period per 100 steps at such a deltaT would plunge at >6 U (it
+# diverged at 128x128 and 1e-4), so the frequency is fixed instead
+DYM_STEPS = 10
+DYM_DT = 5e-6
+DYM_AMP = 0.01
+DYM_FREQ = 1.0
+UNSTEADY_GMRES = 20
+# phase 13: DAIrkPimpleFoam on phase 11's cavity, IRK_STEPS Radau steps of
+# maxSweeps 4 and 2 pressure correctors per stage solve
+IRK_STEPS = 5
+# phase 14: tests/test_interfoam.py's dam break (0.6 x 0.4 m, water at
+# x < 0.2, y < 0.2) at INTER_NX x INTER_NY, deltaT INTER_DT (Courant ~0.2
+# at the collapse speed sqrt(2 g 0.2) ~ 2 m/s), INTER_STEPS steps of 3
+# outer and 2 correctors, the p_rgh solves capped at INTER_PITERS Jacobi-CG
+# iterations. The explicit alpha update is bounded only as far as phi is
+# divergence-free: with a cap of 100 alpha reached 1 + 1.1e-4 by step 20
+# on the card (1 + 1.0e-4 by step 4 in the CPU rehearsal at this size,
+# f32), with 1000 it stays within 1 + 5.6e-6 over the 20 steps on the CPU
+# (with ADI line PCs and a cap of 100, 1 + 2.6e-6 by step 4, ~4x the cost)
+INTER_NX, INTER_NY = 640, 410
+INTER_DT = 1e-4
+INTER_STEPS = 20
+INTER_PITERS = 1000
+# phase 15: tests/test_time_spectral.py:_case's box at 512x512 with N = 5
+# instances, the block Gauss-Seidel primal capped at TS_SWEEPS sweeps
+# (BiCGStab to rel 1e-3, at most 100 iterations per instance solve), one
+# TS_GMRES-iteration residual-form FGMRES cycle with the lineJacobi PC. The
+# segregated PC's 15 BiCGStab sweeps per instance block turned the first
+# FGMRES iteration NaN in the CPU rehearsal at 128x128 (f32)
+TS_SWEEPS = 30
+TS_GMRES = 60
+
+
+def unsteady_adjoint():
+    return {"gmresRelTol": 1e-12, "gmresAbsTol": 1e-30,
+            "gmresRestart": UNSTEADY_GMRES, "gmresMaxIters": UNSTEADY_GMRES,
+            "pcType": "segregated"}
+
+
+def dym_options():
+    func = naca_options()["function"]["CD"]
+    return naca_options(
+        solverName="DAPimpleDyMFoam", deltaT=DYM_DT,
+        endTime=DYM_STEPS * DYM_DT,
+        pimple={"nOuterCorrectors": 4, "nCorrectors": 2},
+        primalLinearSolver={"pMaxIters": 100, "pRelTol": 1e-6,
+                            "uMaxIters": 20, "uRelTol": 1e-6,
+                            "turbMaxIters": 20, "turbRelTol": 1e-6},
+        dynamicMesh={"active": True, "motionType": "translation",
+                     "amplitude": DYM_AMP,
+                     "frequency": DYM_FREQ,
+                     "direction": [0.0, 1.0, 0.0],
+                     "movingPatches": ["wing"]},
+        function={"CD": dict(func, timeOp="average",
+                             timeOpFracStart=0.0)},
+        adjEqnOption=unsteady_adjoint(),
+        normalizeStates={"U": 1.0, "p": 0.5, "phi": 1.0, "nuTilda": 3 * NU},
+        meshFaceLayout="diaDense")
+
+
+def irk_options():
+    return pimple_cavity_options(
+        solverName="DAIrkPimpleFoam", transportProperties={"nu": 1e-4},
+        deltaT=PIMPLE_DT, endTime=IRK_STEPS * PIMPLE_DT,
+        pimple={"nOuterCorrectors": 1, "nCorrectors": 2},
+        irk={"maxSweeps": 4},
+        primalLinearSolver={"pMaxIters": 100, "pRelTol": 1e-6,
+                            "uMaxIters": 20, "uRelTol": 1e-6},
+        adjEqnOption=unsteady_adjoint())
+
+
+def inter_options():
+    zero = [0.0, 0.0, 0.0]
+    walls = {"type": "zeroGradient"}
+    return {
+        "solverName": "DAInterFoam",
+        "transportProperties": {"rho1": 1000.0, "rho2": 1.0, "nu1": 1e-6,
+                                "nu2": 1.48e-5, "cAlpha": 1.0},
+        "g": [0.0, -9.81, 0.0],
+        "deltaT": INTER_DT, "endTime": INTER_STEPS * INTER_DT,
+        "pimple": {"nOuterCorrectors": 3, "nCorrectors": 2},
+        "boundaryConditions": {
+            "U": {"xmin": {"type": "fixedValue", "value": zero},
+                  "xmax": {"type": "fixedValue", "value": zero},
+                  "ymin": {"type": "fixedValue", "value": zero},
+                  "ymax": dict(walls)},
+            "p_rgh": {"xmin": dict(walls), "xmax": dict(walls),
+                      "ymin": dict(walls),
+                      "ymax": {"type": "fixedValue", "value": 0.0}},
+            "alpha": {"xmin": dict(walls), "xmax": dict(walls),
+                      "ymin": dict(walls),
+                      "ymax": {"type": "fixedValue", "value": 0.0}}},
+        "initialFields": {"U": zero, "p_rgh": 0.0, "alpha": 0.0},
+        "primalLinearSolver": {"pMaxIters": INTER_PITERS, "pRelTol": 1e-6,
+                               "uMaxIters": 20, "uRelTol": 1e-6},
+        "function": {"pRight": {"type": "patchMean", "patches": ["xmax"],
+                                "varName": "p_rgh", "scale": 1.0,
+                                "timeOp": "average"}},
+        "adjEqnOption": unsteady_adjoint(),
+        "normalizeStates": {"U": 1.0, "p_rgh": 100.0, "phi": 1.0,
+                            "alpha": 1.0},
+        "normalizeResiduals": ["URes", "p_rghRes", "phiRes", "alphaRes"],
+        "meshFaceLayout": "diaDense"}
+
+
+def ts_options():
+    period = 2.0
+    return {
+        "solverName": "DAScalarTransportFoam",
+        "unsteadyAdjoint": {"mode": "hybrid", "nTimeInstances": 5,
+                            "periodicity": period},
+        "transportProperties": {"DT": 0.05},
+        "boundaryConditions": {
+            "T": {"xmin": {"type": "multiFreqScalar", "refValue": 1.0,
+                           "amplitudes": [0.6],
+                           "frequencies": [1.0 / period], "phases": [0.0]},
+                  "xmax": {"type": "zeroGradient"},
+                  "ymin": {"type": "zeroGradient"},
+                  "ymax": {"type": "zeroGradient"}}},
+        "initialFields": {"T": 1.0},
+        "primalMinResTol": 0.0, "primalMaxIters": TS_SWEEPS,
+        "primalLinearSolver": {"turbRelTol": 1e-3, "turbMaxIters": 100},
+        "function": {"TMean": {"type": "variableVolSum", "varName": "T",
+                               "scale": 1.0, "timeOp": "max",
+                               "timeOpMaxMode": "KS", "coeffKS": 50.0}},
+        "adjEqnOption": {"gmresRelTol": 1e-12, "gmresAbsTol": 1e-30,
+                         "gmresRestart": TS_GMRES,
+                         "gmresMaxIters": TS_GMRES, "pcType": "lineJacobi"},
+        "normalizeStates": {"T": 1.0},
+        "meshFaceLayout": "diaDense"}
+
 
 KINF = 1.5 * (0.05 * 1.0) ** 2      # 5% turbulence intensity at |U_inf| 1
 WINF = KINF / (3.0 * NU)             # nut_inf = 3 nu, as nuTilda_inf = 3 nu
@@ -719,17 +878,23 @@ def _event_us(e):
     return e.device_time_total      # a kernel event: its own duration
 
 
-def device_us(torch, fn, calls=20):
+def device_us(torch, fn, calls=20, tries=3):
     """Microseconds of device time per call (sum of the kernels one call
-    launches), from torch.profiler."""
+    launches), from torch.profiler. A session that records no kernel (the
+    tracing drops one now and then: a K3b time once read 0.0) is run
+    again; none in ``tries`` sessions fails the phase."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(_event_us(e) for e in _kernel_events(prof)) / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = _kernel_events(prof)
+        if events:
+            return sum(_event_us(e) for e in events) / calls
+    raise SmokeFailure("the profiler recorded no kernel")
 
 
 def _max_err(torch, got, ref, label):
@@ -2014,6 +2179,214 @@ def phase_rho_pimple(torch, dk, make_solver, s9, st9):
     return counts
 
 
+def _unsteady_run(torch, dk, s, x, st0, func, tag):
+    """The primal history from ``st0`` and the per-step values of
+    ``func`` (no_grad), timed. Returns (history, J, values, counts,
+    seconds, peak MiB)."""
+    dk.reset_counts()
+    s.solve_stats.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, hist = s.solve_primal_history(st0, x)
+        J, vals = s.eval_function_history(func, hist, x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(dk.COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    per = {k: v[1] / v[0] for k, v in s.solve_stats.items()}
+    stT = {k: v[-1] for k, v in hist.items()}
+    say(f"[{tag}] {s.n_steps} steps in {dt:.2f} s = "
+        f"{dt / s.n_steps * 1e3:.1f} ms per time step; {func} per step "
+        f"{vals.tolist()}, timeOp {float(J)!r}; Krylov iterations per "
+        "solve: " + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+        + f"; peak device memory {peak:.0f} MiB; launch counts {counts}")
+    check(s.states_valid(stT), f"{tag} state is not finite/valid")
+    check(all(math.isfinite(v) for v in vals.tolist()),
+          f"{tag}: {func} not finite")
+    return hist, float(J), vals, counts
+
+
+def _unsteady_sweep(torch, dk, s, x, hist, func, tag, param):
+    """The in-memory reverse sweep, timed; checks finite totals and K3a.
+    Returns (totals, counts)."""
+    from dafoam_tpu_torch.utils import tree
+    s.solve_stats.clear()
+    dk.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tot, resids = s.solve_unsteady_adjoint(hist, x, func)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c = dict(dk.COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    adj = s.solve_stats["adjoint"]
+    say(f"[{tag}-adjoint] in-memory sweep: {dt:.2f} s = "
+        f"{dt / s.n_steps * 1e3:.1f} ms per reverse step; "
+        f"{adj[1] / adj[0]:.1f} FGMRES iterations per reverse step "
+        f"(segregated PC, cap {UNSTEADY_GMRES}); resids "
+        f"[{float(resids.min()):.3e}, {float(resids.max()):.3e}]; "
+        f"d{func}/d{param} {float(tot['params'][param])!r}; peak device "
+        f"memory {peak:.0f} MiB; launch counts {c}")
+    flat = torch.cat([a.reshape(-1) for a in tree.leaves(tot)])
+    check(bool(torch.isfinite(flat).all()), f"{tag} totals not finite")
+    check_counts(c, f"{tag} sweep", ("dia_matvec_t", "dia_matvec_multi_t"))
+    return tot, c
+
+
+def phase_dym_full(torch, dk, make_solver, s5, st5):
+    """Phase 12: DAPimpleDyMFoam, the plunging NACA0012 on phase 5's
+    512x512 O-mesh (f32, dense) from phase 5's state: the SCL residual of
+    step 1's mesh flux, DYM_STEPS ALE steps and the in-memory reverse
+    sweep for the cycle-averaged CD. Returns (primal, sweep) counts."""
+    t0 = time.perf_counter()
+    s = make_solver(dym_options(), s5.topo, s5.points.cpu().numpy(),
+                    device=DEVICE, dtype=torch.float32)
+    x = s.make_inputs()
+    with torch.no_grad():
+        scl = s.scl_residual(s.points_at(x, 0.0), s.points_at(x, s.dt),
+                             s.dt)
+        x64 = dict(x, points=x["points"].double(),
+                   params=dict(x["params"],
+                               dyMeshAmp=x["params"]["dyMeshAmp"].double()))
+        scl64 = s.scl_residual(s.points_at(x64, 0.0),
+                               s.points_at(x64, s.dt), s.dt)
+    torch.cuda.synchronize()
+    say(f"[dym] {FULL}x{FULL} plunging NACA0012, amplitude {DYM_AMP} "
+        f"chord, {DYM_FREQ:g} Hz, deltaT {DYM_DT}: set-up "
+        f"{time.perf_counter() - t0:.1f} s; SCL residual of step 1 "
+        f"(max over cells |sum mesh_phi| / sum |mesh_phi|) {scl:.3e} in "
+        f"f32, {scl64:.3e} with the points in f64")
+    check(math.isfinite(scl) and scl64 < 1e-6, f"SCL residual {scl64}")
+    hist, _, _, counts = _unsteady_run(torch, dk, s, x, st5, "CD", "dym")
+    check_counts(counts, "dym primal")
+    tot, c = _unsteady_sweep(torch, dk, s, x, hist, "CD", "dym",
+                             "dyMeshAmp")
+    return counts, c
+
+
+def phase_irk_full(torch, dk, make_solver, box):
+    """Phase 13: DAIrkPimpleFoam on phase 11's 512x512 cavity (f32, dense):
+    IRK_STEPS Radau IIA steps and the in-memory reverse sweep with the
+    two-stage segregated PC. Returns (primal, sweep) counts."""
+    pts, topo = box(FULL, FULL, 1, (0.1, 0.1, 0.01),
+                    kinds={"zmin": "empty", "zmax": "empty", "xmin": "wall",
+                           "xmax": "wall", "ymin": "wall", "ymax": "wall"})
+    s = make_solver(irk_options(), topo, pts, device=DEVICE,
+                    dtype=torch.float32)
+    x = s.make_inputs()
+    say(f"[irk] {FULL}x{FULL} cavity, Re 1000, deltaT {PIMPLE_DT}, "
+        f"{s.max_sweeps} sweeps x {s.n_corr} pressure correctors; state "
+        f"{sorted(s.state_info.names())}, {s.layout.n_states} unknowns")
+    hist, _, _, counts = _unsteady_run(torch, dk, s, x, s.init_state(),
+                                       "lidF", "irk")
+    check_counts(counts, "irk primal")
+    _, c = _unsteady_sweep(torch, dk, s, x, hist, "lidF", "irk", "nu")
+    return counts, c
+
+
+def phase_inter_full(torch, dk, make_solver, box):
+    """Phase 14: DAInterFoam, the dam break at INTER_NX x INTER_NY (f32,
+    dense): INTER_STEPS steps, alpha bounded and the water volume kept at
+    f32 rounding, the water's centre of mass moving right and down; then
+    the in-memory reverse sweep with the two-phase PC. Returns (primal,
+    sweep) counts."""
+    pts, topo = box(INTER_NX, INTER_NY, 1, (0.6, 0.4, 0.02),
+                    kinds={"zmin": "empty", "zmax": "empty", "xmin": "wall",
+                           "xmax": "wall", "ymin": "wall"})
+    s = make_solver(inter_options(), topo, pts, device=DEVICE,
+                    dtype=torch.float32)
+    x = s.make_inputs()
+    geom = s.geometry(x)
+    cc = geom.cc.double()
+    st0 = s.init_state()
+    st0["alpha"] = ((cc[:, 0] < 0.2) & (cc[:, 1] < 0.2)).to(torch.float32)
+    say(f"[inter] {INTER_NX}x{INTER_NY} dam break ({s.topo.n_cells} "
+        f"cells), deltaT {INTER_DT}, {s.n_outer} outer x {s.n_corr} "
+        "correctors")
+    hist, _, _, counts = _unsteady_run(torch, dk, s, x, st0, "pRight",
+                                       "inter")
+    check_counts(counts, "inter primal", ("dia_matvec",))
+    a = hist["alpha"].double()
+    vol = geom.vol.double()
+    m = (a * vol).sum(dim=1)
+    com = (a * vol) @ cc[:, :2] / m[:, None]
+    drift = float((m / m[0] - 1.0).abs().max())
+    say(f"[inter] alpha in [{float(a.min())!r}, {float(a.max())!r}]; "
+        f"water volume drift {drift:.3e}; centre of mass "
+        f"{com[0].tolist()} -> {com[-1].tolist()}")
+    check(float(a.min()) >= -1e-5 and float(a.max()) <= 1.0 + 1e-5,
+          "alpha left [-1e-5, 1 + 1e-5]")
+    check(drift <= 1e-5, f"water volume drift {drift}")
+    check(float(com[-1, 0]) > float(com[0, 0])
+          and float(com[-1, 1]) < float(com[0, 1]),
+          "the water column did not move right and down")
+    _, c = _unsteady_sweep(torch, dk, s, x, hist, "pRight", "inter", "rho1")
+    return counts, c
+
+
+def phase_ts_full(torch, dk, make_solver, box):
+    """Phase 15: the time-spectral scalar transport on the 1.0 x 0.6 box at
+    FULL x FULL with 5 instances (f32, dense): TS_SWEEPS block
+    Gauss-Seidel sweeps, one TS_GMRES-iteration residual-form FGMRES cycle
+    (lineJacobi PC: per-instance line solves, transposed products through
+    K3a) and the totals. Returns (primal, adjoint) counts."""
+    from dafoam_tpu_torch.utils import tree
+    pts, topo = box(FULL, FULL, 1, (1.0, 0.6, 0.1),
+                    kinds={"zmin": "empty", "zmax": "empty"})
+    s = make_solver(ts_options(), topo, pts, device=DEVICE,
+                    dtype=torch.float32)
+    x = s.make_inputs()
+    x["params"]["U"] = s._tensor([0.4, 0.0, 0.0]).expand(
+        s.topo.n_cells, 3).contiguous()
+    st0 = s.init_state()
+    with torch.no_grad():
+        res0 = float(torch.stack([v.abs().max() for v in
+                                  s.residuals(st0, x).values()]).max())
+    dk.reset_counts()
+    s.solve_stats.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, info = s.run_primal(st0, x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(dk.COUNTS)
+    J = float(s.run_function("TMean", st, x))
+    per = s.solve_stats["T"]
+    say(f"[ts] {FULL}x{FULL} box, {s.n_inst} instances "
+        f"({s.layout.n_states} unknowns): {info.iters} sweeps in {dt:.2f} s"
+        f" = {dt / info.iters * 1e3:.1f} ms per sweep, "
+        f"{per[1] / per[0]:.2f} BiCGStab iterations per instance solve; "
+        f"residual {res0:.4e} -> {info.max_res:.4e}; TMean {J!r}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} "
+        f"MiB; launch counts {counts}")
+    check(not info.failed and s.states_valid(st), "ts state not valid")
+    check(info.max_res < res0, "ts residual did not fall")
+    check(math.isfinite(J), "TMean not finite")
+    check_counts(counts, "ts primal", ("dia_matvec",))
+    dk.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psi, ai = s.solve_adjoint(st, x, "TMean")
+    tot = s.total_derivative(st, x, "TMean", psi)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c = dict(dk.COUNTS)
+    amp = float(tot["bc"]["T"]["xmin"]["amplitudes"][0])
+    say(f"[ts-adjoint] {ai.iters} FGMRES iterations + totals in {dt:.2f} s"
+        f" = {dt / max(ai.iters, 1) * 1e3:.1f} ms per iteration; resid "
+        f"{float(ai.resid0):.4e} -> {float(ai.resid):.4e}; "
+        f"dTMean/d(amplitude) {amp!r}, dTMean/dDT "
+        f"{float(tot['params']['DT'])!r}; launch counts {c}")
+    flat = torch.cat([a.reshape(-1) for a in tree.leaves(tot)])
+    check(bool(torch.isfinite(flat).all()), "ts totals not finite")
+    check_counts(c, "ts adjoint", ("dia_matvec_t",))
+    return counts, c
+
+
 def profile_unsteady(torch, hisa_run, pimple_run):
     """--profile: one AUSMPlusUp PTC iteration of phase 10 (its initial
     residual included), one PIMPLE time step and one reverse step of
@@ -2167,6 +2540,15 @@ def main():
     (pimple_counts, pimple_adj_counts, pimple_ck_counts), pimple_run = \
         phase_pimple_full(torch, dk, make_solver, box_hex_mesh)
     rho_pimple_counts = phase_rho_pimple(torch, dk, make_solver, s9, st9)
+    dym_counts, dym_adj_counts = phase_dym_full(torch, dk, make_solver, s,
+                                                st)
+    irk_counts, irk_adj_counts = phase_irk_full(torch, dk, make_solver,
+                                                box_hex_mesh)
+    ts_counts, ts_adj_counts = phase_ts_full(torch, dk, make_solver,
+                                             box_hex_mesh)
+    inter_counts, inter_adj_counts = phase_inter_full(torch, dk,
+                                                      make_solver,
+                                                      box_hex_mesh)
     phase_kernel_times(torch, dk, real, stats)
 
     if args.profile:
@@ -2201,7 +2583,13 @@ def main():
              "pimple_primal": pimple_counts,
              "pimple_adjoint": pimple_adj_counts,
              "pimple_adjoint_checkpointed": pimple_ck_counts,
-             "rho_pimple_primal": rho_pimple_counts}
+             "rho_pimple_primal": rho_pimple_counts,
+             "dym_primal": dym_counts, "dym_adjoint": dym_adj_counts,
+             "irk_primal": irk_counts, "irk_adjoint": irk_adj_counts,
+             "inter_primal": inter_counts,
+             "inter_adjoint": inter_adj_counts,
+             "time_spectral_primal": ts_counts,
+             "time_spectral_adjoint": ts_adj_counts}
     rows = []
     for name, meta in KERNELS.items():
         st_k = stats[name]

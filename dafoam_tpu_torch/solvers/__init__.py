@@ -7,7 +7,10 @@ from dafoam_tpu_torch.option import DAOption
 from dafoam_tpu_torch.solvers.base import DASolverBase, PrimalInfo
 from dafoam_tpu_torch.solvers.heat_transfer import DAHeatTransferFoam
 from dafoam_tpu_torch.solvers.hisa import DAHisaFoam
+from dafoam_tpu_torch.solvers.inter import DAInterFoam
+from dafoam_tpu_torch.solvers.irk_pimple import DAIrkPimpleFoam
 from dafoam_tpu_torch.solvers.pimple import DAPimpleFoam
+from dafoam_tpu_torch.solvers.pimple_dym import DAPimpleDyMFoam
 from dafoam_tpu_torch.solvers.rho_pimple import DARhoPimpleFoam
 from dafoam_tpu_torch.solvers.rho_simple import (DARhoSimpleCFoam,
                                                  DARhoSimpleFoam,
@@ -15,15 +18,16 @@ from dafoam_tpu_torch.solvers.rho_simple import (DARhoSimpleCFoam,
 from dafoam_tpu_torch.solvers.scalar_transport import DAScalarTransportFoam
 from dafoam_tpu_torch.solvers.simple import DASimpleFoam
 from dafoam_tpu_torch.solvers.solid import DASolidDisplacementFoam
+from dafoam_tpu_torch.solvers.time_spectral import DATimeSpectralScalarFoam
 from dafoam_tpu_torch.solvers.topo_cht import DATopoChtFoam
 
 _SOLVER_REGISTRY = {c.__name__: c for c in (
     DAScalarTransportFoam, DAHeatTransferFoam, DASimpleFoam,
     DASolidDisplacementFoam, DARhoSimpleFoam, DARhoSimpleCFoam, DATurboFoam,
-    DATopoChtFoam, DAHisaFoam, DAPimpleFoam, DARhoPimpleFoam)}
-# solvers of dafoam_tpu that the port does not have yet (ROADMAP.md P9)
-_NOT_PORTED = ("DAPimpleDyMFoam", "DAInterFoam", "DAIrkPimpleFoam",
-               "DATimeSpectralScalarFoam")
+    DATopoChtFoam, DAHisaFoam, DAPimpleFoam, DARhoPimpleFoam,
+    DAPimpleDyMFoam, DAInterFoam, DAIrkPimpleFoam, DATimeSpectralScalarFoam)}
+# unsteadyAdjoint mode "hybrid" (time-spectral) selects these solvers
+_HYBRID = {"DAScalarTransportFoam": "DATimeSpectralScalarFoam"}
 
 
 def make_solver(option, topo, points, *, device, dtype):
@@ -32,17 +36,18 @@ def make_solver(option, topo, points, *, device, dtype):
     ``device`` and ``dtype`` say where and in which precision the solver
     keeps its state, geometry and matrices. meshFaceLayout "auto" picks the
     dense-DIA face layout on a CUDA device and the canonical one on the
-    CPU; "diaDense" and "canonical" force a layout.
+    CPU; "diaDense" and "canonical" force a layout. unsteadyAdjoint mode
+    "hybrid" selects the time-spectral form of a solver that has one.
     """
     opt = option if isinstance(option, DAOption) else DAOption(option)
     name = opt["solverName"]
     if opt["unsteadyAdjoint"].get("mode") == "hybrid":
-        raise NotImplementedError(
-            "unsteadyAdjoint mode 'hybrid' is not ported yet "
-            "(ROADMAP.md queue 1, P9)")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"solver {name!r} is not ported yet "
-                                  "(ROADMAP.md queue 1)")
+        if name in _HYBRID:
+            name = _HYBRID[name]
+        elif name not in _HYBRID.values():
+            raise NotImplementedError(
+                f"unsteadyAdjoint mode 'hybrid' (time-spectral) is "
+                f"implemented for {sorted(_HYBRID)} only, not {name!r}")
     if name not in _SOLVER_REGISTRY:
         raise KeyError(f"unknown solver {name!r}; have "
                        f"{list(_SOLVER_REGISTRY)}")
@@ -66,4 +71,5 @@ __all__ = ["DASolverBase", "PrimalInfo", "DAScalarTransportFoam",
            "DAHeatTransferFoam", "DASimpleFoam", "DASolidDisplacementFoam",
            "DARhoSimpleFoam", "DARhoSimpleCFoam", "DATurboFoam",
            "DATopoChtFoam", "DAHisaFoam", "DAPimpleFoam", "DARhoPimpleFoam",
-           "make_solver"]
+           "DAPimpleDyMFoam", "DAInterFoam", "DAIrkPimpleFoam",
+           "DATimeSpectralScalarFoam", "make_solver"]

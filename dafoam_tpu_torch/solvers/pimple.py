@@ -242,10 +242,11 @@ class DAPimpleFoam(DASimpleFoam):
         return time_op(vals, cfg.get("timeOp", "final"), cfg), vals
 
     # -- unsteady adjoint preconditioner (segregated, amortized) ------------
-    def unsteady_pc_assemble(self, W, W1, W2, inputs):
+    def unsteady_pc_assemble(self, W, W1, W2, inputs, n=None):
         """The per-equation operators linearized at step n (PC matrices
         only; rebuilt every unsteadyAdjoint.PCMatUpdateInterval reverse
-        steps, the reference's PCMatPrecomputeInterval)."""
+        steps, the reference's PCMatPrecomputeInterval). ``n`` matters
+        only where the operators depend on the step (a moving mesh)."""
         with torch.no_grad():
             geom = self.geometry(inputs)
             UEqn, U_bco = self._ueqn_dt(
@@ -294,7 +295,7 @@ class DAPimpleFoam(DASimpleFoam):
             build = self._unsteady_pc_apply_fn(inputs)
 
             def pc_assemble(W, W1, W2, x, n):
-                return build(self.unsteady_pc_assemble(W, W1, W2, x))
+                return build(self.unsteady_pc_assemble(W, W1, W2, x, n))
         pc_interval = int(self.option["unsteadyAdjoint"]
                           .get("PCMatUpdateInterval", 1))
         return weights, scales, opt, pc_assemble, pc_interval

@@ -95,6 +95,35 @@ def assert_close(got, want, rel, what=""):
         f"{what}: max err {err:.3e} > {rel:g} x {scale:.3e}"
 
 
+def to_layout(fields, topo, n_faces_canonical):
+    """Canonical-layout numpy fields -> the face layout of ``topo``: face
+    arrays (last axis n_faces_canonical) scatter by face_map_old2new, the
+    padded faces of the dense layout get 0; cell fields pass through."""
+    fmap = getattr(topo, "face_map_old2new", None)
+    out = {}
+    for k, a in fields.items():
+        a = np.asarray(a)
+        if fmap is not None and a.shape[-1:] == (n_faces_canonical,):
+            b = np.zeros(a.shape[:-1] + (topo.n_faces,), a.dtype)
+            b[..., fmap] = a
+            a = b
+        out[k] = a
+    return out
+
+
+def from_layout(fields, topo):
+    """The inverse of ``to_layout`` for tensors: face fields of the dense
+    layout gathered back to the canonical faces."""
+    fmap = getattr(topo, "face_map_old2new", None)
+    out = {}
+    for k, a in fields.items():
+        a = a.detach().cpu().numpy()
+        if fmap is not None and a.shape[-1:] == (topo.n_faces,):
+            a = a[..., fmap]
+        out[k] = a
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the port stands apart from jax
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ inviscid, AUSMPlusUp, inlet Mach 0.675):
 - the residuals and one vjp with respect to the state and every input,
   for each of AUSMPlusUp, JST and laxFriedrichs, inviscid and viscous
   (laminar, mu 0.5), at a perturbed state, at 1e-12, on both face
-  layouts;
+  layouts (dafoam_tpu's side of these and of the PTC iterations runs once
+  per file, on the canonical layout: the states are cell fields);
 - _euler_flux_jac, _dQdW_blocks, and one forward and one transposed
   _block_pc application at 1e-12;
 - the flow-residual jvp that each PTC GMRES product takes (forward-mode
@@ -17,8 +18,8 @@ inviscid, AUSMPlusUp, inlet Mach 0.675):
   forward_total_derivative at 1e-6, and dCDp/dU_in against a central
   difference of the port's whole pipeline at 2e-4 (as tests/test_hisa.py
   does; each perturbed primal warm-starts from the converged state with
-  sequenceFlux off, CFL 1e3 and no minimum iteration count, to stay
-  inside the file's time).
+  sequenceFlux off, CFL 1e8 (plain Newton) and no minimum iteration
+  count, to stay inside the file's time).
 """
 
 import jax
@@ -127,32 +128,51 @@ def jnp_tree(t):
 # residuals and their vjp
 # ---------------------------------------------------------------------------
 
+SCHEMES = ("AUSMPlusUp", "JST", "laxFriedrichs")
+# dafoam_tpu's side of the layout-parametrized tests, computed once per
+# file on the canonical layout (HiSA's states are cell fields, so the
+# port's dense layout compares against the same arrays)
+_JAX = {}
+
+
+def viscous_options(layout, viscous, **over):
+    tp = {"transportProperties": {"R": R, "gamma": GAMMA, "mu": 0.5}} \
+        if viscous else {}
+    return hisa_options(layout, hisa={"inviscid": not viscous},
+                        **tp, **over)
+
+
+def jax_residuals(viscous):
+    """(state, cotangent, [(R, (vjp_W, vjp_x)) per flux scheme])."""
+    if viscous not in _JAX:
+        js, _, jin = make_pair(viscous_options("canonical", viscous))
+        st = perturbed_state(js)
+        rng = np.random.default_rng(9)
+        v = {k: rng.standard_normal(a.shape) for k, a in st.items()}
+
+        @jax.jit
+        def jfun(w, x, vv):
+            out = []
+            for sch in SCHEMES:
+                r, f_vjp = jax.vjp(
+                    lambda w_, x_: js._residuals_geom(
+                        w_, x_, js.geometry(x_), scheme=sch), w, x)
+                out.append((r, f_vjp(vv)))
+            return out
+
+        _JAX[viscous] = (st, v, to_numpy(jfun(jnp_tree(st), jin,
+                                              jnp_tree(v))))
+    return _JAX[viscous]
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("viscous", [False, True],
                          ids=["inviscid", "viscous"])
 def test_residuals_and_vjp(layout, viscous):
-    over = {"transportProperties": {"R": R, "gamma": GAMMA, "mu": 0.5}} \
-        if viscous else {}
-    js, ts, jin = make_pair(hisa_options(
-        layout, hisa={"inviscid": not viscous}, **over))
+    js, ts, jin = make_pair(viscous_options(layout, viscous))
     tin = convert.inputs_from_numpy(to_numpy(jin), "cpu", F64)
-    st = perturbed_state(js)
-    rng = np.random.default_rng(9)
-    v = {k: rng.standard_normal(a.shape) for k, a in st.items()}
-    schemes = ("AUSMPlusUp", "JST", "laxFriedrichs")
-
-    @jax.jit
-    def jfun(w, x, vv):
-        out = []
-        for sch in schemes:
-            r, f_vjp = jax.vjp(
-                lambda w_, x_: js._residuals_geom(w_, x_, js.geometry(x_),
-                                                  scheme=sch), w, x)
-            out.append((r, f_vjp(vv)))
-        return out
-
-    jout = jfun(jnp_tree(st), jin, jnp_tree(v))
-    for sch, (rj, (gwj, gxj)) in zip(schemes, jout):
+    st, v, jout = jax_residuals(viscous)
+    for sch, (rj, (gwj, gxj)) in zip(SCHEMES, jout):
         wt = {k: torch.tensor(a).requires_grad_() for k, a in st.items()}
         xt = tree.tmap(lambda a: a.detach().clone().requires_grad_(), tin)
         rt = ts._residuals_geom(wt, xt, ts.geometry(xt), scheme=sch)
@@ -244,19 +264,30 @@ def test_ptc_jvp_against_fd():
 # the PTC primal, three iterations pinned
 # ---------------------------------------------------------------------------
 
+PINNED = {"sequenceFlux": False, "innerIters": 20, "innerRelTol": 0.0}
+
+
+def jax_ptc():
+    """dafoam_tpu's three pinned PTC iterations (canonical layout)."""
+    if "ptc" not in _JAX:
+        js, _, jin = make_pair(hisa_options(
+            "canonical", hisa=PINNED, primalMaxIters=3, primalMinIters=3))
+        jw, jinfo = js.run_primal(js.init_state(), jin)
+        _JAX["ptc"] = (to_numpy(jw), int(jinfo.iters), float(jinfo.max_res))
+    return _JAX["ptc"]
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_ptc_three_iterations(layout):
-    pinned = {"sequenceFlux": False, "innerIters": 20, "innerRelTol": 0.0}
     js, ts, jin = make_pair(hisa_options(
-        layout, hisa=pinned, primalMaxIters=3, primalMinIters=3))
+        layout, hisa=PINNED, primalMaxIters=3, primalMinIters=3))
     tin = convert.inputs_from_numpy(to_numpy(jin), "cpu", F64)
-    jw, jinfo = js.run_primal(js.init_state(), jin)
+    jw, jiters, jres = jax_ptc()
     tw, tinfo = ts.run_primal(ts.init_state(), tin)
-    assert int(jinfo.iters) == tinfo.iters == 3
+    assert jiters == tinfo.iters == 3
     assert ts.solve_stats["ptc_gmres"] == [3, 60]
-    assert abs(tinfo.max_res - float(jinfo.max_res)) \
-        <= 1e-10 * float(jinfo.max_res)
-    for k, a in to_numpy(jw).items():
+    assert abs(tinfo.max_res - jres) <= 1e-10 * jres
+    for k, a in jw.items():
         assert_close(tw[k], a, 1e-10, f"{layout} PTC {k}")
 
 
@@ -297,7 +328,8 @@ def test_adjoint_totals(converged):
     # central difference of the port's pipeline, warm-started
     h = 1e-3 * UIN
     ts.option.set("hisa.sequenceFlux", False)
-    ts.option.set("hisa.cfl", 1e3)
+    ts.option.set("hisa.cfl", 1e8)      # Newton: 2 iterations, not 6
+    ts.option.set("hisa.cflMax", 1e8)
     ts.option.set("primalMinIters", 0)
 
     def run(uin):

@@ -5,10 +5,12 @@ tests/test_pimple_unsteady.py (Re 10, 5 Euler steps, timeOp average):
 - time_op in every mode: its value and its weights (the gradient that
   seeds the reverse sweep) at 1e-12;
 - residuals_unsteady and one vjp with respect to W, W_old, W_oldold and
-  every input, Euler and BDF2, at perturbed states of the port's history,
-  at 1e-12, on both face layouts;
+  every input, Euler and BDF2, at perturbed states of dafoam_tpu's
+  history, at 1e-12, on both face layouts;
 - one PIMPLE time step with pinned Krylov trip counts (every inner solve
-  runs its full budget) at 1e-10, on both face layouts;
+  runs its full budget) at 1e-10, on both face layouts (dafoam_tpu's side
+  of both runs once, on the canonical layout; the port's dense faces
+  carried by face_map_old2new);
 - golden pimple_unsteady through the port on both layouts: lidF_avg at
   1e-8, dlidF/dnu and ||dlidF/dpoints|| at 1e-6 against
   tests/golden/values.json, each times max(1, |golden|) as
@@ -38,7 +40,8 @@ from dafoam_tpu_torch import convert
 from dafoam_tpu_torch.ops import dia_kernels as dk
 from dafoam_tpu_torch.timeops import dfscaling, time_op
 from dafoam_tpu_torch.utils import tree
-from test_torch_cases import LAYOUTS, REPO, assert_close, to_numpy
+from test_torch_cases import (LAYOUTS, REPO, assert_close, from_layout,
+                              to_layout, to_numpy)
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -163,48 +166,76 @@ def test_time_op(name):
 # residual and vjp
 # ---------------------------------------------------------------------------
 
-def history_numpy(port_case):
-    return convert.history_to_numpy(port_case[3])
+PINNED = {"pMaxIters": 6, "pRelTol": 0.0, "uMaxIters": 3, "uRelTol": 0.0}
+
+
+@pytest.fixture(scope="module")
+def jax_products(jax_case):
+    """dafoam_tpu on the canonical layout, one compile each: the residual
+    of step 3 and one vjp for each ddt scheme, at steps 3, 2, 1 of its
+    history perturbed by 2%, and one pinned step 3 from its step-2 state.
+    The port's layouts take them through face_map_old2new."""
+    jin, jhist = jax_case[1], jax_case[2]
+    rng = np.random.default_rng(17)
+    W = [{k: a[n] * (1.0 + 0.02 * rng.standard_normal(a[n].shape))
+          for k, a in jhist.items()} for n in (3, 2, 1)]
+    v = {k: rng.standard_normal(a.shape) for k, a in W[0].items()}
+    res = {}
+    for scheme in ("Euler", "backward"):
+        js = make_pair(cavity_options(ddtScheme=scheme))[0]
+
+        @jax.jit
+        def jfun(w, wo, woo, x, vv):
+            r, f_vjp = jax.vjp(
+                lambda *a: js.residuals_unsteady(*a, n=3), w, wo, woo, x)
+            return r, f_vjp(vv)
+
+        res[scheme] = to_numpy(jfun(
+            *[{k: jnp.asarray(a) for k, a in s.items()} for s in W], jin,
+            {k: jnp.asarray(a) for k, a in v.items()}))
+    js = make_pair(cavity_options(
+        primalLinearSolver=PINNED,
+        pimple={"nOuterCorrectors": 4, "nCorrectors": 2}))[0]
+    W2 = {k: a[2] for k, a in jhist.items()}
+    geom_j = js.geometry(jin)
+    step = to_numpy(jax.jit(lambda w: js._step(w, jin, geom_j,
+                                               t=jnp.asarray(3 * js.dt)))(
+        {k: jnp.asarray(a) for k, a in W2.items()}))
+    return js.topo.n_faces, to_numpy(jin), W, v, res, W2, step
 
 
 @pytest.mark.parametrize("scheme", ["Euler", "backward"])
-def test_residuals_unsteady_and_vjp(port_case, scheme):
-    """At steps 3, 2, 1 of the port's history on the layout, perturbed."""
+def test_residuals_unsteady_and_vjp(port_case, jax_products, scheme):
+    """At steps 3, 2, 1 of dafoam_tpu's history, perturbed."""
     layout = port_case[0]
-    hist = history_numpy(port_case)
-    js, ts = make_pair(cavity_options(layout, ddtScheme=scheme))
-    jin = js.make_inputs()
-    tin = convert.inputs_from_numpy(to_numpy(jin), "cpu", F64)
-    rng = np.random.default_rng(17)
-    W = [{k: a[n] * (1.0 + 0.02 * rng.standard_normal(a[n].shape))
-          for k, a in hist.items()} for n in (3, 2, 1)]
-    v = {k: rng.standard_normal(a.shape) for k, a in W[0].items()}
-
-    @jax.jit
-    def jfun(w, wo, woo, x, vv):
-        r, f_vjp = jax.vjp(
-            lambda *a: js.residuals_unsteady(*a, n=3), w, wo, woo, x)
-        return r, f_vjp(vv)
-
-    rj, gj = jfun(*[{k: jnp.asarray(a) for k, a in s.items()} for s in W],
-                  jin, {k: jnp.asarray(a) for k, a in v.items()})
-    wt = [{k: torch.tensor(a).requires_grad_() for k, a in s.items()}
-          for s in W]
+    nf, jin, W, v, res, _, _ = jax_products
+    rj, gj = res[scheme]
+    ts = make_pair(cavity_options(layout, ddtScheme=scheme))[1]
+    tin = convert.inputs_from_numpy(jin, "cpu", F64)
+    wt = [{k: torch.tensor(a).requires_grad_()
+           for k, a in to_layout(s, ts.topo, nf).items()} for s in W]
+    vt = {k: torch.as_tensor(a)
+          for k, a in to_layout(v, ts.topo, nf).items()}
     xt = tree.tmap(lambda a: a.detach().clone().requires_grad_(), tin)
     rt = ts.residuals_unsteady(*wt, xt, n=3)
     keys = sorted(rt)
     leaves = [w[k] for w in wt for k in sorted(w)] + tree.leaves(xt)
     grads = torch.autograd.grad(
-        sum((rt[k] * torch.as_tensor(v[k])).sum() for k in keys), leaves,
+        sum((rt[k] * vt[k]).sum() for k in keys), leaves,
         allow_unused=True)
+    got_r = from_layout(rt, ts.topo)
     for k in keys:
-        assert_close(rt[k], np.asarray(rj[k]), 1e-12, f"{scheme} R[{k}]")
+        assert_close(got_r[k], np.asarray(rj[k]), 1e-12, f"{scheme} R[{k}]")
     want = [np.asarray(g[k]) for g in gj[:3] for k in sorted(g)] + \
         [np.asarray(a) for a in jax.tree_util.tree_leaves(gj[3])]
     got = [torch.zeros_like(x) if g is None else g
            for x, g in zip(leaves, grads)]
+    n = len(keys)
+    got = [a.reshape(-1) for i in range(3) for a in from_layout(
+        dict(zip(sorted(W[0]), got[i * n:(i + 1) * n])), ts.topo).values()] \
+        + [g.reshape(-1).numpy() for g in got[3 * n:]]
     assert len(got) == len(want)
-    assert_close(torch.cat([g.reshape(-1) for g in got]),
+    assert_close(np.concatenate(got),
                  np.concatenate([w.reshape(-1) for w in want]), 1e-12,
                  f"{scheme} vjp")
 
@@ -213,31 +244,25 @@ def test_residuals_unsteady_and_vjp(port_case, scheme):
 # one time step, pinned
 # ---------------------------------------------------------------------------
 
-def test_step_pinned(port_case):
-    """Step 3 from the port's step-2 state, with every inner solve at its
+def test_step_pinned(port_case, jax_products):
+    """Step 3 from dafoam_tpu's step-2 state, with every inner solve at its
     full budget (rel_tol 0): 4 outer correctors, U 3 BiCGStab and p 6 CG
     iterations per solve."""
     layout = port_case[0]
-    hist = history_numpy(port_case)
-    pinned = {"pMaxIters": 6, "pRelTol": 0.0, "uMaxIters": 3,
-              "uRelTol": 0.0}
-    opts = cavity_options(layout, primalLinearSolver=pinned,
+    nf, jin, _, _, _, W2, jst = jax_products
+    opts = cavity_options(layout, primalLinearSolver=PINNED,
                           pimple={"nOuterCorrectors": 4, "nCorrectors": 2})
-    js, ts = make_pair(opts)
-    jin = js.make_inputs()
-    tin = convert.inputs_from_numpy(to_numpy(jin), "cpu", F64)
-    W2 = {k: a[2] for k, a in hist.items()}
-    geom_j = js.geometry(jin)
-    jst = to_numpy(jax.jit(lambda w: js._step(w, jin, geom_j,
-                                              t=jnp.asarray(3 * js.dt)))(
-        {k: jnp.asarray(a) for k, a in W2.items()}))
+    ts = make_pair(opts)[1]
+    tin = convert.inputs_from_numpy(jin, "cpu", F64)
     with torch.no_grad():
-        tst = ts._step(convert.state_from_numpy(W2, "cpu", F64), tin,
-                       ts.geometry(tin), t=3 * ts.dt)
+        tst = ts._step(convert.state_from_numpy(to_layout(W2, ts.topo, nf),
+                                                "cpu", F64),
+                       tin, ts.geometry(tin), t=3 * ts.dt)
     assert ts.solve_stats["U"] == [4, 12]
     assert ts.solve_stats["p"] == [8, 48]
+    got = from_layout(tst, ts.topo)
     for k in jst:
-        assert_close(tst[k], jst[k], 1e-10, f"{layout} step {k}")
+        assert_close(got[k], jst[k], 1e-10, f"{layout} step {k}")
 
 
 # ---------------------------------------------------------------------------

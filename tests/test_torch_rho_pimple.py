@@ -4,7 +4,8 @@ implicit-Euler steps, 20 outer and 3 pressure correctors, timeOp
 average of the outlet temperature) with the top wall at 331 K (T_TOP):
 
 - residuals_unsteady and one vjp with respect to W, W_old and every
-  input, at a perturbed state, at 1e-12, on both face layouts;
+  input, at a perturbed state of dafoam_tpu's history, at 1e-12, on both
+  face layouts (dafoam_tpu's side runs once, on the canonical layout);
 - the primal history at 1e-10 (every field on the canonical layout, the
   cell fields on the dense one, whose faces are numbered differently);
 - the unsteady totals against dafoam_tpu's at 1e-8, on both layouts.
@@ -19,7 +20,8 @@ import torch
 from dafoam_tpu_torch import convert
 from dafoam_tpu_torch.ops import dia_kernels as dk
 from dafoam_tpu_torch.utils import tree
-from test_torch_cases import LAYOUTS, assert_close, to_numpy
+from test_torch_cases import (LAYOUTS, assert_close, from_layout, to_layout,
+                              to_numpy)
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -107,14 +109,16 @@ def port_case(request):
     return request.param, ts, tin, hist, dict(dk.COUNTS)
 
 
-def test_residuals_unsteady_and_vjp(port_case):
-    layout, _, _, hist, _ = port_case
-    js, ts, jin = make_pair(layout)
-    tin = convert.inputs_from_numpy(to_numpy(jin), "cpu", F64)
-    hist = convert.history_to_numpy(hist)
+@pytest.fixture(scope="module")
+def jax_residuals(jax_case):
+    """dafoam_tpu's residual and one vjp at steps 3, 2 of its history,
+    perturbed, on the canonical layout (one compile; the port's dense
+    layout takes them through face_map_old2new)."""
+    jin, jhist, _ = jax_case
+    js = make_pair("canonical")[0]
     rng = np.random.default_rng(23)
     W = [{k: a[n] * (1.0 + 0.02 * rng.standard_normal(a[n].shape))
-          for k, a in hist.items()} for n in (3, 2)]
+          for k, a in jhist.items()} for n in (3, 2)]
     v = {k: rng.standard_normal(a.shape) for k, a in W[0].items()}
 
     @jax.jit
@@ -123,25 +127,38 @@ def test_residuals_unsteady_and_vjp(port_case):
             lambda a, b, c: js.residuals_unsteady(a, b, b, c), w, wo, x)
         return r, f_vjp(vv)
 
-    rj, gj = jfun(*[{k: jnp.asarray(a) for k, a in s.items()} for s in W],
-                  jin, {k: jnp.asarray(a) for k, a in v.items()})
-    wt = [{k: torch.tensor(a).requires_grad_() for k, a in s.items()}
-          for s in W]
+    rj, gj = to_numpy(jfun(
+        *[{k: jnp.asarray(a) for k, a in s.items()} for s in W], jin,
+        {k: jnp.asarray(a) for k, a in v.items()}))
+    return js.topo.n_faces, W, v, rj, gj
+
+
+def test_residuals_unsteady_and_vjp(jax_case, port_case, jax_residuals):
+    layout, ts, tin = port_case[:3]
+    nf, W, v, rj, gj = jax_residuals
+    wt = [{k: torch.tensor(a).requires_grad_()
+           for k, a in to_layout(s, ts.topo, nf).items()} for s in W]
+    vt = {k: torch.as_tensor(a)
+          for k, a in to_layout(v, ts.topo, nf).items()}
     xt = tree.tmap(lambda a: a.detach().clone().requires_grad_(), tin)
     rt = ts.residuals_unsteady(wt[0], wt[1], wt[1], xt)
     keys = sorted(rt)
     leaves = [w[k] for w in wt for k in sorted(w)] + tree.leaves(xt)
     grads = torch.autograd.grad(
-        sum((rt[k] * torch.as_tensor(v[k])).sum() for k in keys), leaves,
-        allow_unused=True)
+        sum((rt[k] * vt[k]).sum() for k in keys), leaves, allow_unused=True)
+    got_r = from_layout(rt, ts.topo)
     for k in keys:
-        assert_close(rt[k], np.asarray(rj[k]), 1e-12, f"{layout} R[{k}]")
+        assert_close(got_r[k], np.asarray(rj[k]), 1e-12, f"{layout} R[{k}]")
     want = [np.asarray(g[k]) for g in gj[:2] for k in sorted(g)] + \
         [np.asarray(a) for a in jax.tree_util.tree_leaves(gj[2])]
     got = [torch.zeros_like(x) if g is None else g
            for x, g in zip(leaves, grads)]
+    n = len(keys)
+    got = [a.reshape(-1) for i in range(2) for a in from_layout(
+        dict(zip(sorted(W[0]), got[i * n:(i + 1) * n])), ts.topo).values()] \
+        + [g.reshape(-1).numpy() for g in got[2 * n:]]
     assert len(got) == len(want)
-    assert_close(torch.cat([g.reshape(-1) for g in got]),
+    assert_close(np.concatenate(got),
                  np.concatenate([w.reshape(-1) for w in want]), 1e-12,
                  f"{layout} vjp")
 

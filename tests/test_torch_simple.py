@@ -74,11 +74,20 @@ def test_solves_ran_through_the_dia_path(runs):
     assert counts["dia_matvec"] == counts["dia_matvec_multi"] == 0
 
 
-def test_unported_parts_raise(runs):
+def test_make_solver_refuses_hybrid_and_unknown(runs):
+    """unsteadyAdjoint mode "hybrid" (time-spectral) with DASimpleFoam
+    raises NotImplementedError and an unknown solver name KeyError, in
+    both packages."""
     _, _, _, ts = runs
+    from dafoam_tpu.solvers import make_solver as jmake
     from dafoam_tpu_torch.solvers import make_solver
-    for name in ("DAPimpleDyMFoam", "DAInterFoam"):
-        opts = naca_options("canonical", primalMaxIters=1, solverName=name)
-        with pytest.raises(NotImplementedError):
+    hybrid = naca_options("canonical", primalMaxIters=1,
+                          unsteadyAdjoint={"mode": "hybrid"})
+    unknown = naca_options("canonical", primalMaxIters=1,
+                           solverName="DANoSuchFoam")
+    for opts, err in ((hybrid, NotImplementedError), (unknown, KeyError)):
+        with pytest.raises(err):
             make_solver(opts, ts.topo, ts.points.numpy(), device="cpu",
                         dtype=torch.float64)
+        with pytest.raises(err):
+            jmake(opts, ts.topo, ts.points.numpy())

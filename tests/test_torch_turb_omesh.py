@@ -8,7 +8,8 @@ segregated PC; ~840 and ~860 iterations, ~25 s each; neither the state,
 another PC nor a start from the other layout's psi cuts that: the psi of
 the two layouts differ by 1% in a direction that moves no total, and the
 system is that close to singular there). dafoam_tpu then takes the port's
-psi on the same state: psi must solve dafoam_tpu's own adjoint system
+psi on the same state, on the canonical layout for both of the port's
+layouts (one compilation): psi must solve dafoam_tpu's own adjoint system
 D_W dR/dW^T psi = D_W dJ/dW (to rel 1e-6, see PSI_BAR), and dafoam_tpu's
 totals from it must match the port's at rel 1e-8 (dCD/dnu, ||dCD/dpoints||
 as the golden cases compare it, dCD/dk_far). dafoam_tpu's own FGMRES is
@@ -35,9 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from dafoam_tpu_torch import convert
-from test_torch_cases import (NU, assert_close, jax_solver, naca_options,
-                              to_numpy, torch_solver)
+from test_torch_cases import (NU, assert_close, from_layout, jax_solver,
+                              naca_options, to_numpy, torch_solver)
 
 # Elementwise dCD/dpoints is not compared: on the symmetric airfoil at
 # zero incidence the points on the symmetry line sit on kinks (equal
@@ -133,25 +133,17 @@ def port_runs():
     return d1, out
 
 
-def padded(topo):
-    """Mask of the dense layout's zero-area padding faces."""
-    ni = topo.n_internal
-    m = np.zeros(topo.n_faces, dtype=bool)
-    m[:ni] = np.asarray(topo.dia_dense()[1]).reshape(-1) == 0.0
-    return torch.from_numpy(m)
-
-
-@pytest.mark.parametrize("layout", ["canonical", "diaDense"])
-def test_sst_omesh_totals_match_jax(port_runs, layout):
-    d1, runs = port_runs
-    s, x, w, psi, ai, tot = runs[layout]
-    assert ai.converged, ai
+@pytest.fixture(scope="module")
+def jax_check(port_runs):
+    """dafoam_tpu's canonical-layout solver and one compiled check, shared
+    by both layouts (the dense layout's state and psi are carried to the
+    canonical faces; its zero-area padding faces, whose phi rows are the
+    identity and reach no other row and no total, drop out)."""
+    d1, _ = port_runs
     with jax_sst_with_flux():
-        js = jax_solver(sst_naca_options(layout, d1,
+        js = jax_solver(sst_naca_options("canonical", d1,
                                          adjEqnOption=dict(ADJ)))
     jin = js.make_inputs()
-    wj = {k: jnp.asarray(v) for k, v in convert.state_to_numpy(w).items()}
-    pj = {k: jnp.asarray(v) for k, v in convert.state_to_numpy(psi).items()}
 
     @jax.jit
     def check(w_, psi_):
@@ -166,13 +158,18 @@ def test_sst_omesh_totals_match_jax(port_runs, layout):
         tot = jadj.total_derivative(js._norm_residuals, func, w_, jin, psi_)
         return r, b, tot
 
-    r, b, jtot = check(wj, pj)
+    return check
+
+
+@pytest.mark.parametrize("layout", ["canonical", "diaDense"])
+def test_sst_omesh_totals_match_jax(port_runs, jax_check, layout):
+    d1, runs = port_runs
+    s, x, w, psi, ai, tot = runs[layout]
+    assert ai.converged, ai
+    wj = {k: jnp.asarray(v) for k, v in from_layout(w, s.topo).items()}
+    pj = {k: jnp.asarray(v) for k, v in from_layout(psi, s.topo).items()}
+    r, b, jtot = jax_check(wj, pj)
     r = to_numpy(r)
-    if layout == "diaDense":
-        # the padding faces' own rows: there phi = 0 sits on the upwind
-        # switch's kink, where the packages take different one-sided
-        # derivatives; psi_pad reaches no other row and no total
-        r["phi"] = np.where(padded(s.topo).numpy(), 0.0, r["phi"])
     rn = np.sqrt(sum(float(np.sum(v ** 2)) for v in r.values()))
     bn = np.sqrt(sum(float(jnp.sum(v ** 2)) for v in b.values()))
     assert rn <= PSI_BAR * bn, (rn, bn)
