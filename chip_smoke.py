@@ -148,7 +148,29 @@ case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
    FULL x FULL with 5 instances, TS_SWEEPS block Gauss-Seidel sweeps
    (residual must fall), one TS_GMRES-iteration FGMRES cycle with the
    lineJacobi PC and the totals (finite); K1 and K3a, no plain version.
-   Phase 15 runs before 14.
+   Phase 15 runs before 14;
+16. shape optimization: the workflow of
+   dafoam_tpu_torch/examples/naca0012_drag_opt.py on phase 5's case and
+   state: an 8x4x2 FFD box (12 y-displacement DVs), ShapeOptProblem's
+   eval_all(0), grad(0) and SHAPE_MAXITER SLSQP iterations within
+   +-SHAPE_BOUND, each primal cut at SHAPE_ITERS iterations (converged at
+   max_res SHAPE_TOL), each adjoint one 120-iteration fixed-point cycle;
+   CD and the gradient finite, grad(0) equal to the hand chain B^T
+   dCD/dpoints at rel 1e-4, every K1/K2/K3 kernel launched, none plain;
+17. MPhys: tests/test_mphys.py's aero model (DAFoamMesh, the wing points
+   as x_aero, DAFoamWarper's IDWarp over every volume point,
+   DAFoamSolver, DAFoamFunctions) on the port's OpenMDAO shim, on phase
+   5's case warm-started from its state: run_model and
+   compute_totals(CD, x_aero); the totals finite, nonzero and equal to the
+   direct route (total_derivative at the same psibar through the warper's
+   vjp) at rel 1e-4, one residual graph recorded; every kernel launched,
+   none plain;
+18. coupling: the heated plate of tests/test_cht.py (CHT) and the flexible
+   wall of tests/test_fsi.py (FSI) with a CPL_NX x CPL_NY fluid channel
+   (f32, dense): CPL_OUTER block Gauss-Seidel iterations, then one
+   CPL_GMRES-iteration coupled-adjoint GMRES cycle; finite states and
+   totals, K1/K2 in the primal, no plain version anywhere (the coupled
+   residual forms A x face by face: no DIA kernel in the adjoint).
 
 ``--profile`` adds a torch.profiler table of one more SIMPLE iteration, of
 one (I - dG^T) product, of one residual-form iteration (a residual vjp
@@ -159,7 +181,7 @@ time step and of one reverse step (phase 11's). The last line of
 standard output is one JSON object with "ok" and the device; the line
 before it repeats the card's name and power limit, and the one before
 that lists every kernel with its launches on the full-width paths
-(phases 5, 5b, 5c, 6, 6b, 6c, 6d, 8, 8b, 9, 9b, 10, 11, 11b and 12-15,
+(phases 5, 5b, 5c, 6, 6b, 6c, 6d, 8, 8b, 9, 9b, 10, 11, 11b and 12-18,
 each counted from zero; "launches_by_path" splits them),
 its error against the plain version, its times and its bound. The script
 prints its total wall seconds before those lines.
@@ -184,11 +206,11 @@ NU = 1e-3
 UINF = [1.0, 0.0, 0.0]
 KERNELS = {
     "dia_matvec": {
-        "replaces": "dafoam_tpu/ops/pallas_kernels.py:65 (dia_matvec), "
-                    ":96 (dia_matvec_tiled)"},
+        "replaces": "dafoam_tpu/ops/pallas_kernels.py:66 (dia_matvec), "
+                    ":97 (dia_matvec_tiled)"},
     "dia_matvec_multi": {
-        "replaces": "dafoam_tpu/ops/pallas_kernels.py:175 (dia_matvec_multi),"
-                    " :219 (dia_matvec_multi_tiled)"},
+        "replaces": "dafoam_tpu/ops/pallas_kernels.py:176 (dia_matvec_multi),"
+                    " :221 (dia_matvec_multi_tiled)"},
     "dia_matvec_t": {
         "replaces": "dafoam_tpu/ops/pallas_kernels.py:400-413 "
                     "(_dia_ad_factory bwd, x_bar via dia_matvec at :406; "
@@ -2387,6 +2409,379 @@ def phase_ts_full(torch, dk, make_solver, box):
     return counts, c
 
 
+# ---------------------------------------------------------------------------
+# phases 16-18: the MDO and coupling layer at full width
+# ---------------------------------------------------------------------------
+
+# phase 16: examples/naca0012_drag_opt.py's workflow on phase 5's case. Each
+# evaluation's primal is cut at SHAPE_ITERS SIMPLE iterations and counts
+# as converged at max_res SHAPE_TOL (phase 5 leaves 4.1e-3-4.5e-3; the
+# SLSQP steps of the first call raised the first iteration's max_res to
+# 1.6e-2 at most): a primal that misses it is re-run from init_state()
+# (ShapeOptProblem's restart rule); each gradient's adjoint is one
+# fpMaxIters = 120 cycle (bench options)
+SHAPE_TOL = 1e-2
+SHAPE_ITERS = 60
+# phase 17's mesh gate: mesh/airfoil.py's O-mesh has non-orthogonality
+# 82.0 deg and skewness 16.6 at the trailing edge at 512x512 (75.6 / 2.0
+# at 64x64; dafoam_tpu's check reports the same), past checkMeshThreshold's
+# defaults of 70 / 4: the case sets its own, as DAFoam cases do
+O_MESH_THRESHOLD = {"maxAspectRatio": 1000.0, "maxNonOrth": 85.0,
+                    "maxSkewness": 20.0, "maxIncorrectlyOrientedFaces": 0}
+SHAPE_BOUND = 0.03
+SHAPE_MAXITER = 2
+# phase 18: tests/test_cht.py's heated plate and tests/test_fsi.py's
+# flexible wall with the fluid channel at CPL_NX x CPL_NY (the solid at
+# half the height), f32: CPL_OUTER block Gauss-Seidel iterations of
+# CPL_SIMPLE SIMPLE (bench's inner-solve caps) and CPL_PICARD solid
+# Picard iterations, then one CPL_GMRES-iteration unpreconditioned GMRES
+# cycle of the coupled adjoint
+CPL_NX, CPL_NY = 1024, 256
+CPL_OUTER = 3
+CPL_SIMPLE = 20
+CPL_PICARD = 3
+CPL_GMRES = 60
+CPL_LINEAR = {"pMaxIters": 50, "pRelTol": 0.05, "uMaxIters": 20,
+              "uRelTol": 0.1, "turbMaxIters": 20, "turbRelTol": 0.1}
+# the heat-transfer primal's own loop repeats its linear solve (Jacobi-CG
+# to rel 1e-14, at most 10,000 iterations) until the residual meets
+# primalMinResTol, at most 100 times; in f32 the slab's residual stalls at
+# ~4 (CPU rehearsal, 64x8), so a tolerance no residual misses makes it one
+# solve per outer iteration
+CPL_HEAT_TOL = 1e30
+
+
+@contextlib.contextmanager
+def wrapped(obj, name, wrap):
+    """Shadow the method ``name`` of one object for the duration of a
+    block: ``wrap(method)`` returns the stand-in."""
+    setattr(obj, name, wrap(getattr(obj, name)))
+    try:
+        yield
+    finally:
+        delattr(obj, name)
+
+
+def _timed(torch, log):
+    """A wrapper factory that appends each call's seconds (after a device
+    sync) and result to ``log``."""
+    def wrap(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            log.append((time.perf_counter() - t0, out))
+            return out
+        return run
+    return wrap
+
+
+def phase_shape_opt(torch, dk, s, st):
+    """Phase 16: ShapeOptProblem on phase 5's 512x512 case with the
+    example's FFD (8x4x2 control points, y-displacements of the 6x2
+    xy-interior ones: 12 DVs) warm-started from phase 5's state:
+    eval_all(0), grad(0), then SLSQP for SHAPE_MAXITER iterations within
+    +-SHAPE_BOUND. grad(0) must equal the hand chain: FFD's B^T applied to
+    the captured dCD/dpoints, reduced to the 12 DVs. Returns the counts."""
+    import numpy as np
+    from dafoam_tpu_torch.examples.naca0012_drag_opt import make_geo_fn
+    from dafoam_tpu_torch.mdo import FFDBox
+    from dafoam_tpu_torch.mdo.optimize import ShapeOptProblem
+
+    t0 = time.perf_counter()
+    ffd = FFDBox(s.points.cpu().numpy(), nx=8, ny=4, nz=2,
+                 bounds=([-0.1, -0.2, -1.0], [1.1, 0.2, 1.1]),
+                 device=DEVICE, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t_ffd = time.perf_counter() - t0
+    geo_fn, n_dv = make_geo_fn(ffd, s.points)
+    say(f"[shape-opt] FFD 8x4x2 over {ffd._B.shape[0]} points "
+        f"({int(ffd.inside.sum())} inside): built in {t_ffd:.2f} s, "
+        f"operator {ffd._B.numel() * ffd._B.element_size() / 2**20:.1f} "
+        f"MiB on the card; {n_dv} DVs")
+    prims, evals, grads, tots = [], [], [], []
+    with overridden(s.option, primalMinResTol=SHAPE_TOL, primalMinIters=1,
+                    primalMaxIters=SHAPE_ITERS), \
+            wrapped(s, "run_primal", _timed(torch, prims)), \
+            wrapped(s, "run_totals", _timed(torch, tots)):
+        prob = ShapeOptProblem(s, geo_fn, "CD")
+        prob._state = {k: v.detach() for k, v in st.items()}
+        with wrapped(prob, "eval_all", _timed(torch, evals)), \
+                wrapped(prob, "grad", _timed(torch, grads)):
+            dk.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            dv0 = np.zeros(n_dv)
+            funcs, state, inputs = prob.eval_all(dv0)
+            g0 = prob.grad(dv0, "CD", state, inputs)
+            t0 = time.perf_counter()
+            res = prob.run(dv0, bounds=[(-SHAPE_BOUND, SHAPE_BOUND)] * n_dv,
+                           maxiter=SHAPE_MAXITER)
+            t_run = time.perf_counter() - t0
+            counts = dict(dk.COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    cds = [h["CD"] for h in prob.history]
+    restarts = len(prims) - len(evals)
+    say(f"[shape-opt] {len(evals)} evaluations ({len(prob.history) - 1} "
+        f"by SLSQP), {len(grads)} gradients, {restarts} primal restarts "
+        f"from init_state(); s per evaluation "
+        f"{[round(t, 2) for t, _ in evals]}, per gradient "
+        f"{[round(t, 2) for t, _ in grads]}; SLSQP {t_run:.1f} s, "
+        f"{res.nit} iterations, status {res.status} ({res.message})")
+    say(f"[shape-opt] primal runs (iterations, max_res, converged): "
+        f"{[(i.iters, round(i.max_res, 5), i.converged) for _, (_, i) in prims]}")
+    say(f"[shape-opt] CD per evaluation {cds}; ||dCD/dDV|| at 0 "
+        f"{float(np.linalg.norm(g0))!r}; SLSQP end CD {res.fun!r}; peak "
+        f"device memory {peak:.0f} MiB")
+    say(f"[shape-opt] launch counts {counts}")
+    # the hand chain: B^T dCD/dpoints, reduced to the DVs
+    gcp = (ffd._B.T @ tots[0][1]["points"]).reshape(8, 4, 2, 3)
+    hand = gcp[1:7, 1:3, :, 1].sum(dim=2).reshape(-1).double().cpu().numpy()
+    err = float(np.abs(g0 - hand).max() / np.abs(hand).max())
+    say(f"[shape-opt] grad(0) against the hand chain: rel {err:.3e}")
+    check(all(math.isfinite(c) for c in cds), f"CD not finite: {cds}")
+    check(np.isfinite(g0).all() and np.abs(g0).max() > 0,
+          "dCD/dDV not finite or zero")
+    check(err <= 1e-4, f"grad against the hand chain: rel {err}")
+    check_counts(counts, "shape-opt", ADJOINT_KERNELS)
+    return counts
+
+
+def phase_mphys(torch, dk, s, st):
+    """Phase 17: tests/test_mphys.py's aero model on phase 5's case on the
+    port's OpenMDAO shim: DAFoamMesh -> x_aero (the wing points) ->
+    DAFoamWarper (IDWarp over every volume point, the far field fixed) ->
+    DAFoamSolver (warm-started from phase 5's state) -> DAFoamFunctions.
+    run_model, then compute_totals(CD, x_aero) through solve_linear (one
+    capped fixed-point cycle). The totals must equal the direct route,
+    total_derivative at the same psibar through the warper's vjp. Returns
+    the counts."""
+    import tracemalloc
+
+    import numpy as np
+    from dafoam_tpu_torch.mdo import mphys
+    from dafoam_tpu_torch.mdo import om_shim as om
+    from dafoam_tpu_torch.mesh.check import check_mesh
+    from dafoam_tpu_torch.outputs import patch_point_ids
+
+    s.option.set("designSurfaces", ["wing"])
+    vol = {"aero_vol_coords": {"type": "volCoord",
+                               "components": ["solver", "function"]}}
+    with overridden(s.option, primalMinResTol=SHAPE_TOL, primalMinIters=1,
+                    primalMaxIters=SHAPE_ITERS, inputInfo=vol,
+                    checkMeshThreshold=O_MESH_THRESHOLD):
+        ok, rep = check_mesh(s.geometry(s.make_inputs()), s.topo,
+                             s.option["checkMeshThreshold"])
+        say(f"[mphys] checkMesh {rep} -> {'ok' if ok else 'FAILS'}")
+        model = om.Group()
+        model.add_subsystem("mesh", mphys.DAFoamMesh(solver=s),
+                            promotes=["*"])
+        ivc = om.IndepVarComp()
+        pids = patch_point_ids(s.topo, ["wing"])
+        ivc.add_output("x_aero", val=s.points.cpu().numpy()[pids].ravel())
+        model.add_subsystem("dvs", ivc, promotes=["*"])
+        comps = {"deformer": mphys.DAFoamWarper(solver=s),
+                 "solver": mphys.DAFoamSolver(solver=s),
+                 "functions": mphys.DAFoamFunctions(solver=s)}
+        for name, comp in comps.items():
+            model.add_subsystem(name, comp, promotes=["*"])
+        tracemalloc.start()
+        t0 = time.perf_counter()
+        prob = om.Problem(model).setup()
+        t_setup = time.perf_counter() - t0
+        host_peak = tracemalloc.get_traced_memory()[1] / 2**20
+        tracemalloc.stop()
+        warper = comps["deformer"]
+        say(f"[mphys] Problem.setup {t_setup:.1f} s (IDWarp over "
+            f"{warper.warp._npts} points, {len(warper.surf_ids)} wing "
+            f"points, k 20; host peak {host_peak:.0f} MiB traced)")
+        xs = torch.as_tensor(np.asarray(prob["x_aero"]), device=DEVICE,
+                             dtype=torch.float32)
+        with torch.no_grad():
+            warp_ms = cuda_ms(torch, lambda: warper.warp_flat(xs), reps=5,
+                              inner=10)
+        comps["solver"]._state = {k: v.detach() for k, v in st.items()}
+        dk.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prob.run_model()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        cd = float(np.asarray(prob["CD"]).ravel()[0])
+        t0 = time.perf_counter()
+        tot = prob.compute_totals(of="CD", wrt="x_aero")[("CD", "x_aero")]
+        torch.cuda.synchronize()
+        t_tot = time.perf_counter() - t0
+        counts = dict(dk.COUNTS)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        ai = comps["solver"].last_adjoint_info
+        info = comps["solver"].last_info
+        say(f"[mphys] warp {warp_ms:.3f} ms on the card; run_model "
+            f"{t_run:.2f} s ({info.iters} SIMPLE iterations, max_res "
+            f"{info.max_res:.3e}), CD {cd!r}; compute_totals {t_tot:.2f} s "
+            f"(fixed-point cycle: {ai.iters} iterations, resid0 "
+            f"{ai.resid0:.3e} -> {ai.resid:.3e}; residual graphs recorded "
+            f"{comps['solver'].n_graphs}); peak device memory {peak:.0f} MiB")
+        say(f"[mphys] launch counts {counts}")
+        # the direct route: total_derivative at the same psibar, through
+        # the warper's vjp
+        sol = comps["solver"]
+        psi = s.layout.unpack(torch.as_tensor(
+            sol._psi_packed, device=DEVICE, dtype=torch.float32))
+        tp = s.total_derivative(sol._state, sol._tree_cache, "CD",
+                                psi)["points"]
+        xr = xs.clone().requires_grad_(True)
+        with torch.enable_grad():
+            v = warper.warp_flat(xr)
+        (direct,) = torch.autograd.grad(v, xr, tp.reshape(-1))
+        direct = direct.double().cpu().numpy()
+        err = float(np.abs(tot - direct).max() / np.abs(direct).max())
+        say(f"[mphys] ||dCD/dx_aero|| {float(np.linalg.norm(tot))!r}; "
+            f"against the direct route: rel {err:.3e}")
+    check(np.isfinite(tot).all() and np.abs(tot).max() > 0,
+          "MPhys totals not finite or zero")
+    check(err <= 1e-4, f"MPhys totals against the direct route: rel {err}")
+    check(comps["solver"].n_graphs == 1, "residual graph recorded twice")
+    check_counts(counts, "mphys", ADJOINT_KERNELS)
+    return counts
+
+
+def _coupled(torch, dk, cpl, tag, side, func, diag, param):
+    """Phase 18's drive of one coupling: CPL_OUTER block Gauss-Seidel
+    iterations, then one CPL_GMRES-iteration coupled-adjoint cycle.
+    Returns (primal counts, adjoint counts)."""
+    f, s = cpl.fluid, cpl.solid
+    inf, ins = f.make_inputs(), s.make_inputs()
+    sf, ss = f.init_state(), s.init_state()
+    dk.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(CPL_OUTER):
+        t0 = time.perf_counter()
+        sf, ss, (info_f, info_s) = cpl.solve_primal(sf, ss, inf, ins,
+                                                    n_outer=1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        say(f"[{tag}] outer {len(times)}: {times[-1]:.2f} s, fluid max_res "
+            f"{info_f.max_res:.3e}, solid {info_s.iters} iterations max_res "
+            f"{info_s.max_res:.3e}, {diag[0]} {float(diag[1](sf, ss, inf, ins))!r}")
+    counts = dict(dk.COUNTS)
+    check(f.states_valid(sf) and s.states_valid(ss), f"{tag}: state invalid")
+    check_counts(counts, f"{tag} primal")
+    dk.reset_counts()
+    t0 = time.perf_counter()
+    tf, ts, ai = cpl.solve_adjoint(sf, ss, inf, ins, side, func,
+                                   restart=CPL_GMRES, rel_tol=1e-9,
+                                   max_iters=CPL_GMRES)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    adj = dict(dk.COUNTS)
+    node = ts
+    for k in param:
+        node = node[k]
+    val = float(node)
+    say(f"[{tag}] coupled adjoint: {ai.iters} GMRES iterations in {dt:.2f} "
+        f"s, resid0 {ai.resid0:.3e} -> {ai.resid:.3e}; d{func}/d"
+        f"{'.'.join(param)} {val!r}; ||d{func}/dpoints_fluid|| "
+        f"{float(torch.linalg.norm(tf['points']))!r}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    say(f"[{tag}] launch counts primal {counts} adjoint {adj}")
+    check(math.isfinite(val), f"{tag}: totals not finite")
+    check(all(bool(torch.isfinite(v).all()) for v in tf.values()
+              if isinstance(v, torch.Tensor)), f"{tag}: fluid totals")
+    # the residual form's R(W) forms A x face by face, not through the
+    # banded matvec: no DIA kernel is due here, and none may run plain
+    check_counts(adj, f"{tag} adjoint", ())
+    return counts, adj
+
+
+def fsi_options():
+    """tests/test_fsi.py:build's fluid and solid options, the plate's
+    Picard iterations cut to CPL_PICARD."""
+    zero = [0.0, 0.0, 0.0]
+    fluid = {
+        "solverName": "DASimpleFoam", "turbulenceModel": "None",
+        "transportProperties": {"nu": 1e-3},
+        "boundaryConditions": {
+            "U": {"xmin": {"type": "fixedValue", "value": [1.0, 0.0, 0.0]},
+                  "xmax": {"type": "zeroGradient"},
+                  "ymin": {"type": "fixedValue", "value": zero},
+                  "ymax": {"type": "fixedValue", "value": zero}},
+            "p": {"xmin": {"type": "zeroGradient"},
+                  "xmax": {"type": "fixedValue", "value": 0.0},
+                  "ymin": {"type": "zeroGradient"},
+                  "ymax": {"type": "zeroGradient"}}},
+        "initialFields": {"U": [1.0, 0.0, 0.0], "p": 0.0},
+        "relaxationFactors": {"fields": {"p": 0.2}, "equations": {"U": 0.5}},
+        "function": {"drag": {"type": "force", "patches": ["ymin"],
+                              "directionMode": "fixedDirection",
+                              "direction": [1.0, 0.0, 0.0], "scale": 1.0}},
+        "normalizeStates": {"U": 1.0, "p": 0.5, "phi": 1.0}}
+    solid = {
+        "solverName": "DASolidDisplacementFoam",
+        "transportProperties": {"E": 5e4, "nuPoisson": 0.3,
+                                "rhoSolid": 1000.0},
+        "boundaryConditions": {
+            "D": {"xmin": {"type": "fixedValue", "value": zero},
+                  "xmax": {"type": "fixedValue", "value": zero},
+                  "ymin": {"type": "fixedValue", "value": zero},
+                  "ymax": {"type": "fixedGradient", "value": zero}}},
+        "initialFields": {"D": zero},
+        "primalMinResTol": 0.0, "primalMaxIters": CPL_PICARD,
+        "relaxationFactors": {"fields": {"D": 0.9}, "equations": {}},
+        "function": {}, "normalizeStates": {"D": 1e-4}}
+    return fluid, solid
+
+
+def phase_coupling_full(torch, dk, make_solver, box):
+    """Phase 18: CHT (the heated plate, DASimpleFoam with T over
+    DAHeatTransferFoam) and FSI (the flexible wall, DASimpleFoam over
+    DASolidDisplacementFoam, IDWarp of the fluid mesh) with the fluid
+    channel at CPL_NX x CPL_NY (f32, dense). Returns the four counts."""
+    from dafoam_tpu_torch.coupling import CHTCoupling, FSICoupling
+    from dafoam_tpu_torch.examples import cht_heated_plate as ex
+
+    f32 = torch.float32
+    fluid_over = {"primalMinResTol": 0.0, "primalMaxIters": CPL_SIMPLE,
+                  "primalLinearSolver": dict(CPL_LINEAR)}
+    t0 = time.perf_counter()
+    fluid, solid = ex.build(DEVICE, f32, nx=CPL_NX, ny_fluid=CPL_NY,
+                            ny_solid=CPL_NY // 2, fluid_over=fluid_over,
+                            solid_over={"primalMinResTol": CPL_HEAT_TOL})
+    cht = CHTCoupling(fluid, solid, "ymin", "ymax")
+    say(f"[cht] {CPL_NX}x{CPL_NY} channel ({fluid.topo.n_cells} cells) over "
+        f"a {CPL_NX}x{CPL_NY // 2} slab: set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    cht_counts = _coupled(torch, dk, cht, "cht", "fluid", "Tout",
+                          ("interface T mismatch", cht.interface_mismatch),
+                          ("bc", "T", "ymin"))
+    del cht, fluid, solid
+
+    opts_f, opts_s = fsi_options()
+    opts_f.update(fluid_over)
+    t0 = time.perf_counter()
+    pts_f, topo_f = box(CPL_NX, CPL_NY, 1, (1.0, 0.1, 0.01),
+                        kinds={"zmin": "empty", "zmax": "empty",
+                               "ymin": "wall", "ymax": "wall"})
+    pts_s, topo_s = box(CPL_NX, CPL_NY // 2, 1, (1.0, 0.02, 0.01),
+                        kinds={"zmin": "empty", "zmax": "empty"})
+    pts_s = pts_s.copy()
+    pts_s[:, 1] -= 0.02
+    fsi = FSICoupling(make_solver(opts_f, topo_f, pts_f, device=DEVICE,
+                                  dtype=f32),
+                      make_solver(opts_s, topo_s, pts_s, device=DEVICE,
+                                  dtype=f32), "ymin", "ymax")
+    torch.cuda.synchronize()
+    say(f"[fsi] {CPL_NX}x{CPL_NY} channel over a {CPL_NX}x{CPL_NY // 2} "
+        f"plate: set-up (meshes, IDWarp over {fsi.warp._npts} points, "
+        f"{len(fsi.surf_ids)} interface points, k 12) "
+        f"{time.perf_counter() - t0:.1f} s")
+    fsi_counts = _coupled(
+        torch, dk, fsi, "fsi", "fluid", "drag",
+        ("interface displacement", lambda sf, ss, inf, ins:
+         fsi.interface_displacement(ss, ins)), ("params", "E"))
+    return cht_counts + fsi_counts
+
+
 def profile_unsteady(torch, hisa_run, pimple_run):
     """--profile: one AUSMPlusUp PTC iteration of phase 10 (its initial
     residual included), one PIMPLE time step and one reverse step of
@@ -2549,6 +2944,9 @@ def main():
     inter_counts, inter_adj_counts = phase_inter_full(torch, dk,
                                                       make_solver,
                                                       box_hex_mesh)
+    shape_counts = phase_shape_opt(torch, dk, s, st)
+    mphys_counts = phase_mphys(torch, dk, s, st)
+    cpl_counts = phase_coupling_full(torch, dk, make_solver, box_hex_mesh)
     phase_kernel_times(torch, dk, real, stats)
 
     if args.profile:
@@ -2589,7 +2987,10 @@ def main():
              "inter_primal": inter_counts,
              "inter_adjoint": inter_adj_counts,
              "time_spectral_primal": ts_counts,
-             "time_spectral_adjoint": ts_adj_counts}
+             "time_spectral_adjoint": ts_adj_counts,
+             "shape_opt": shape_counts, "mphys": mphys_counts,
+             **dict(zip(("cht_primal", "cht_adjoint", "fsi_primal",
+                         "fsi_adjoint"), cpl_counts))}
     rows = []
     for name, meta in KERNELS.items():
         st_k = stats[name]
