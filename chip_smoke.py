@@ -2645,10 +2645,13 @@ def phase_mphys(torch, dk, s, st):
     return counts
 
 
-def _coupled(torch, dk, cpl, tag, side, func, diag, param):
+def _coupled(torch, dk, cpl, tag, side, func, diag, param, reach):
     """Phase 18's drive of one coupling: CPL_OUTER block Gauss-Seidel
-    iterations, then one CPL_GMRES-iteration coupled-adjoint cycle.
-    Returns (primal counts, adjoint counts)."""
+    iterations, then one CPL_GMRES-iteration coupled-adjoint cycle, whose
+    psi is held to GMRES's residual by one more product. ``param``: the
+    path of a solid-side total to print; ``reach``: (side, path) of a
+    total that one cycle reaches, checked nonzero. Returns (primal counts,
+    adjoint counts)."""
     f, s = cpl.fluid, cpl.solid
     inf, ins = f.make_inputs(), s.make_inputs()
     sf, ss = f.init_state(), s.init_state()
@@ -2663,82 +2666,79 @@ def _coupled(torch, dk, cpl, tag, side, func, diag, param):
         times.append(time.perf_counter() - t0)
         say(f"[{tag}] outer {len(times)}: {times[-1]:.2f} s, fluid max_res "
             f"{info_f.max_res:.3e}, solid {info_s.iters} iterations max_res "
-            f"{info_s.max_res:.3e}, {diag[0]} {float(diag[1](sf, ss, inf, ins))!r}")
+            f"{info_s.max_res:.3e}, {diag[0]} "
+            f"{float(diag[1](sf, ss, inf, ins))!r}")
     counts = dict(dk.COUNTS)
     check(f.states_valid(sf) and s.states_valid(ss), f"{tag}: state invalid")
     check_counts(counts, f"{tag} primal")
     dk.reset_counts()
     t0 = time.perf_counter()
-    tf, ts, ai = cpl.solve_adjoint(sf, ss, inf, ins, side, func,
-                                   restart=CPL_GMRES, rel_tol=1e-9,
-                                   max_iters=CPL_GMRES)
+    tf, ts, ai, psi = cpl.solve_adjoint(sf, ss, inf, ins, side, func,
+                                        restart=CPL_GMRES, rel_tol=1e-9,
+                                        max_iters=CPL_GMRES,
+                                        return_psi=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     adj = dict(dk.COUNTS)
-    node = ts
-    for k in param:
-        node = node[k]
-    val = float(node)
+    true = _coupled_true_resid(torch, cpl, {"fluid": sf, "solid": ss}, inf,
+                               ins, side, func, psi)
+    tots = {"fluid": tf, "solid": ts}
+    vals = {}
+    for sd, path in (("solid", param), reach):
+        node = tots[sd]
+        for k in path:
+            node = node[k]
+        vals[path] = float(node)
     say(f"[{tag}] coupled adjoint: {ai.iters} GMRES iterations in {dt:.2f} "
-        f"s, resid0 {ai.resid0:.3e} -> {ai.resid:.3e}; d{func}/d"
-        f"{'.'.join(param)} {val!r}; ||d{func}/dpoints_fluid|| "
+        f"s, resid0 {ai.resid0:.6e} -> {ai.resid:.6e} (true {true:.6e}); "
+        + "; ".join(f"d{func}/d{'.'.join(p)} {v!r}" for p, v in vals.items())
+        + f"; ||d{func}/dpoints_fluid|| "
         f"{float(torch.linalg.norm(tf['points']))!r}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     say(f"[{tag}] launch counts primal {counts} adjoint {adj}")
-    check(math.isfinite(val), f"{tag}: totals not finite")
+    check(all(math.isfinite(v) for v in vals.values()),
+          f"{tag}: totals not finite")
+    check(vals[reach[1]] != 0.0,
+          f"{tag}: d{func}/d{'.'.join(reach[1])} is 0 after one cycle")
     check(all(bool(torch.isfinite(v).all()) for v in tf.values()
               if isinstance(v, torch.Tensor)), f"{tag}: fluid totals")
+    # psi's true residual confirms GMRES's Arnoldi estimate. In f32 they
+    # part by 5e-5 of the estimate (CHT) and 2.6e-2 (FSI, whose products
+    # run through the warped mesh's geometry) on the H100
+    check(abs(true - ai.resid) <= 0.05 * ai.resid,
+          f"{tag}: true residual {true} against GMRES's {ai.resid}")
     # the residual form's R(W) forms A x face by face, not through the
     # banded matvec: no DIA kernel is due here, and none may run plain
     check_counts(adj, f"{tag} adjoint", ())
     return counts, adj
 
 
-def fsi_options():
-    """tests/test_fsi.py:build's fluid and solid options, the plate's
-    Picard iterations cut to CPL_PICARD."""
-    zero = [0.0, 0.0, 0.0]
-    fluid = {
-        "solverName": "DASimpleFoam", "turbulenceModel": "None",
-        "transportProperties": {"nu": 1e-3},
-        "boundaryConditions": {
-            "U": {"xmin": {"type": "fixedValue", "value": [1.0, 0.0, 0.0]},
-                  "xmax": {"type": "zeroGradient"},
-                  "ymin": {"type": "fixedValue", "value": zero},
-                  "ymax": {"type": "fixedValue", "value": zero}},
-            "p": {"xmin": {"type": "zeroGradient"},
-                  "xmax": {"type": "fixedValue", "value": 0.0},
-                  "ymin": {"type": "zeroGradient"},
-                  "ymax": {"type": "zeroGradient"}}},
-        "initialFields": {"U": [1.0, 0.0, 0.0], "p": 0.0},
-        "relaxationFactors": {"fields": {"p": 0.2}, "equations": {"U": 0.5}},
-        "function": {"drag": {"type": "force", "patches": ["ymin"],
-                              "directionMode": "fixedDirection",
-                              "direction": [1.0, 0.0, 0.0], "scale": 1.0}},
-        "normalizeStates": {"U": 1.0, "p": 0.5, "phi": 1.0}}
-    solid = {
-        "solverName": "DASolidDisplacementFoam",
-        "transportProperties": {"E": 5e4, "nuPoisson": 0.3,
-                                "rhoSolid": 1000.0},
-        "boundaryConditions": {
-            "D": {"xmin": {"type": "fixedValue", "value": zero},
-                  "xmax": {"type": "fixedValue", "value": zero},
-                  "ymin": {"type": "fixedValue", "value": zero},
-                  "ymax": {"type": "fixedGradient", "value": zero}}},
-        "initialFields": {"D": zero},
-        "primalMinResTol": 0.0, "primalMaxIters": CPL_PICARD,
-        "relaxationFactors": {"fields": {"D": 0.9}, "equations": {}},
-        "function": {}, "normalizeStates": {"D": 1e-4}}
-    return fluid, solid
+def _coupled_true_resid(torch, cpl, W, inf, ins, side, func, psi):
+    """|S (dR/dW^T psi - dJ/dW)|, the coupled adjoint's residual in the
+    normalizeStates metric its GMRES runs in, by one more product."""
+    from dafoam_tpu_torch.adjoint.solver import _grad, _requiring_grad, vjp
+    from dafoam_tpu_torch.coupling.cht import _scale_tree, state_scales
+    from dafoam_tpu_torch.linalg.krylov import tnorm
+    from dafoam_tpu_torch.utils import tree
+
+    scales = state_scales(cpl.fluid, cpl.solid, inf, ins)
+    w = _requiring_grad(W)
+    with torch.enable_grad():
+        J = cpl.eval_function(w, inf, ins, side, func)
+    b = _scale_tree(_grad(J, w), scales)
+    _, f_vjp = vjp(lambda ww: cpl.residuals(ww, inf, ins), W)
+    res = tree.tmap(torch.sub, _scale_tree(f_vjp(psi), scales), b)
+    return float(tnorm(res))
 
 
-def phase_coupling_full(torch, dk, make_solver, box):
+def phase_coupling_full(torch, dk):
     """Phase 18: CHT (the heated plate, DASimpleFoam with T over
     DAHeatTransferFoam) and FSI (the flexible wall, DASimpleFoam over
     DASolidDisplacementFoam, IDWarp of the fluid mesh) with the fluid
     channel at CPL_NX x CPL_NY (f32, dense). Returns the four counts."""
-    from dafoam_tpu_torch.coupling import CHTCoupling, FSICoupling
+    from dafoam_tpu_torch.coupling import CHTCoupling
     from dafoam_tpu_torch.examples import cht_heated_plate as ex
+    from dafoam_tpu_torch.examples import fsi_flexible_wall as fsi_ex
 
     f32 = torch.float32
     fluid_over = {"primalMinResTol": 0.0, "primalMaxIters": CPL_SIMPLE,
@@ -2753,23 +2753,14 @@ def phase_coupling_full(torch, dk, make_solver, box):
         f"{time.perf_counter() - t0:.1f} s")
     cht_counts = _coupled(torch, dk, cht, "cht", "fluid", "Tout",
                           ("interface T mismatch", cht.interface_mismatch),
-                          ("bc", "T", "ymin"))
+                          ("bc", "T", "ymin"), ("fluid", ("params", "nu")))
     del cht, fluid, solid
 
-    opts_f, opts_s = fsi_options()
-    opts_f.update(fluid_over)
     t0 = time.perf_counter()
-    pts_f, topo_f = box(CPL_NX, CPL_NY, 1, (1.0, 0.1, 0.01),
-                        kinds={"zmin": "empty", "zmax": "empty",
-                               "ymin": "wall", "ymax": "wall"})
-    pts_s, topo_s = box(CPL_NX, CPL_NY // 2, 1, (1.0, 0.02, 0.01),
-                        kinds={"zmin": "empty", "zmax": "empty"})
-    pts_s = pts_s.copy()
-    pts_s[:, 1] -= 0.02
-    fsi = FSICoupling(make_solver(opts_f, topo_f, pts_f, device=DEVICE,
-                                  dtype=f32),
-                      make_solver(opts_s, topo_s, pts_s, device=DEVICE,
-                                  dtype=f32), "ymin", "ymax")
+    fsi = fsi_ex.build(DEVICE, f32, nx=CPL_NX, ny_fluid=CPL_NY,
+                       ny_solid=CPL_NY // 2, fluid_over=fluid_over,
+                       solid_over={"primalMinResTol": 0.0,
+                                   "primalMaxIters": CPL_PICARD})
     torch.cuda.synchronize()
     say(f"[fsi] {CPL_NX}x{CPL_NY} channel over a {CPL_NX}x{CPL_NY // 2} "
         f"plate: set-up (meshes, IDWarp over {fsi.warp._npts} points, "
@@ -2778,7 +2769,8 @@ def phase_coupling_full(torch, dk, make_solver, box):
     fsi_counts = _coupled(
         torch, dk, fsi, "fsi", "fluid", "drag",
         ("interface displacement", lambda sf, ss, inf, ins:
-         fsi.interface_displacement(ss, ins)), ("params", "E"))
+         fsi.interface_displacement(ss, ins)), ("params", "E"),
+        ("solid", ("params", "E")))
     return cht_counts + fsi_counts
 
 
@@ -2946,7 +2938,7 @@ def main():
                                                       box_hex_mesh)
     shape_counts = phase_shape_opt(torch, dk, s, st)
     mphys_counts = phase_mphys(torch, dk, s, st)
-    cpl_counts = phase_coupling_full(torch, dk, make_solver, box_hex_mesh)
+    cpl_counts = phase_coupling_full(torch, dk)
     phase_kernel_times(torch, dk, real, stats)
 
     if args.profile:

@@ -32,8 +32,16 @@ def _scale_tree(t, scales, invert=False):
             for side, sub in t.items()}
 
 
+def state_scales(fluid, solid, inputs_f, inputs_s):
+    """The normalizeStates scales of the union state: the metric S in
+    which the coupled adjoint solves S dR/dW^T S^-1 (S psi) = S dJ/dW."""
+    with torch.no_grad():
+        return {"fluid": fluid.state_scales(fluid.geometry(inputs_f)),
+                "solid": solid.state_scales(solid.geometry(inputs_s))}
+
+
 def coupled_adjoint(residuals, func, W, inputs_f, inputs_s, scales,
-                    restart, rel_tol, max_iters):
+                    restart, rel_tol, max_iters, return_psi=False):
     """Totals of func(W, inputs_f, inputs_s) w.r.t. both inputs dicts
     through the coupled residual R(W, inputs_f, inputs_s) = 0 over the
     union state W = {"fluid": ..., "solid": ...}:
@@ -41,7 +49,8 @@ def coupled_adjoint(residuals, func, W, inputs_f, inputs_s, scales,
         dR/dW^T psi = dJ/dW (in the normalizeStates metric, by GMRES),
         dJ/dx = pJ/px - psi^T pR/px.
 
-    Returns (totals w.r.t. inputs_f, totals w.r.t. inputs_s, SolveInfo).
+    Returns (totals w.r.t. inputs_f, totals w.r.t. inputs_s, SolveInfo),
+    and psi after them with ``return_psi``.
     """
     xf, xs = _detached(inputs_f), _detached(inputs_s)
     w = _requiring_grad(W)
@@ -69,6 +78,8 @@ def coupled_adjoint(residuals, func, W, inputs_f, inputs_s, scales,
         R = residuals(Wd, x["f"], x["s"])
     dR = _grad(R, x, psi)
     tot = tree.tmap(torch.sub, dJ, dR)
+    if return_psi:
+        return tot["f"], tot["s"], info, psi
     return tot["f"], tot["s"], info
 
 
@@ -157,17 +168,14 @@ class CHTCoupling:
 
     def solve_adjoint(self, state_f, state_s, inputs_f, inputs_s,
                       func_side: str, func_name: str,
-                      restart=200, rel_tol=1e-9, max_iters=3000):
+                      restart=200, rel_tol=1e-9, max_iters=3000,
+                      return_psi=False):
         """Total derivatives of one side's function w.r.t. BOTH sides'
-        inputs through the coupled system."""
-        with torch.no_grad():
-            scales = {"fluid": self.fluid.state_scales(
-                          self.fluid.geometry(inputs_f)),
-                      "solid": self.solid.state_scales(
-                          self.solid.geometry(inputs_s))}
+        inputs through the coupled system (``coupled_adjoint``)."""
         return coupled_adjoint(
             self.residuals,
             lambda w, xf, xs: self.eval_function(w, xf, xs, func_side,
                                                  func_name),
             {"fluid": state_f, "solid": state_s}, inputs_f, inputs_s,
-            scales, restart, rel_tol, max_iters)
+            state_scales(self.fluid, self.solid, inputs_f, inputs_s),
+            restart, rel_tol, max_iters, return_psi)

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dafoam_tpu_torch.coupling.cht import coupled_adjoint
+from dafoam_tpu_torch.coupling.cht import coupled_adjoint, state_scales
 from dafoam_tpu_torch.functions.registry import _wall_force
 from dafoam_tpu_torch.mdo.warp import IDWarp
 
@@ -139,14 +139,11 @@ class FSICoupling:
 
     # -- coupled adjoint ---------------------------------------------------------
     def solve_adjoint(self, state_f, state_s, inputs_f, inputs_s, side,
-                      name, restart=200, rel_tol=1e-9, max_iters=3000):
-        with torch.no_grad():
-            scales = {"fluid": self.fluid.state_scales(
-                          self.fluid.geometry(inputs_f)),
-                      "solid": self.solid.state_scales(
-                          self.solid.geometry(inputs_s))}
+                      name, restart=200, rel_tol=1e-9, max_iters=3000,
+                      return_psi=False):
         return coupled_adjoint(
             self.residuals,
             lambda w, xf, xs: self.eval_function(w, xf, xs, side, name),
             {"fluid": state_f, "solid": state_s}, inputs_f, inputs_s,
-            scales, restart, rel_tol, max_iters)
+            state_scales(self.fluid, self.solid, inputs_f, inputs_s),
+            restart, rel_tol, max_iters, return_psi)

@@ -7,6 +7,7 @@ test_torch_* files import them.
 """
 
 import ast
+import contextlib
 import json
 import os
 import subprocess
@@ -80,6 +81,34 @@ def torch_solver(opts):
 
 def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@contextlib.contextmanager
+def jax_geometry_jitted():
+    """dafoam_tpu's compute_geometry under jax.jit, one trace per mesh,
+    while the block runs: run eagerly, each of its primitives compiles on
+    its own (0.5-1.5 s a call on the test meshes). The same function;
+    only the rounding of fused operations differs."""
+    from dafoam_tpu.mesh import geometry
+    from dafoam_tpu.solvers import base, simple
+
+    eager = geometry.compute_geometry
+    fns = {}
+
+    def compute_geometry(points, topo):
+        # the topology is kept beside its function, so its id is not reused
+        if id(topo) not in fns:
+            fns[id(topo)] = (topo, jax.jit(
+                lambda p, topo=topo: eager(p, topo)))
+        return fns[id(topo)][1](points)
+
+    mp = pytest.MonkeyPatch()
+    for mod in (geometry, base, simple):
+        mp.setattr(mod, "compute_geometry", compute_geometry)
+    try:
+        yield
+    finally:
+        mp.undo()
 
 
 def assert_close(got, want, rel, what=""):

@@ -3,22 +3,33 @@ on the cases of tests/test_cht.py (12x6 channel over a 12x4 slab) and
 tests/test_fsi.py (10x5 channel over a 10x3 plate), both face layouts:
 
 - the block Gauss-Seidel coupled primal at pinned counts (one outer
-  iteration, each side taking the other's data once: 10 SIMPLE iterations; inner solves to 1e-12; the FSI
-  plate's 8 Picard iterations) at 1e-10, with the interface data (CHT:
-  the mismatch of the interface temperatures; FSI: the interface
-  displacement);
-- at dafoam_tpu's state (carried over with convert.py and, on the dense
-  layout, to_layout): the coupled residual over the union state at 1e-10,
-  and the monolithic coupled adjoint: dJ/dW equals dafoam_tpu's at
-  1e-12, the port's psi solves the port's system to a true residual of
-  1e-7 in the normalizeStates metric (its dR/dW^T products are those of
-  the single-physics residuals, held to dafoam_tpu by the other port
-  tests), and the port's totals with respect to both sides' inputs equal
-  dafoam_tpu's dJ/dx - psi^T dR/dx at that psi at 1e-8 (a total that
-  cancels below 1e-4 of its side's largest at 1e-12 of the largest).
-  dafoam_tpu's side is its primal and one jitted function of psi per case
-  (module fixture): its own GMRES on these systems, hundreds of
-  iterations through an unjitted vjp, takes over a minute per case.
+  iteration, each side taking the other's data once: 10 SIMPLE
+  iterations, inner solves to 1e-12, the FSI plate's 8 Picard
+  iterations) at 1e-10, with the interface data (CHT: the mismatch of
+  the interface temperatures; FSI: the interface displacement);
+- the monolithic coupled adjoint at dafoam_tpu's state, carried over with
+  convert.py and, on the dense layout, to_layout, its solid state moved
+  by seeded noise of 1e-6 of its normalizeStates scale: the coupled
+  residual R(W) at 1e-10 and dJ/dW at 1e-12; the port's product
+  dR/dW^T v at a seeded random v, every block including the coupling's
+  cross blocks, equal to dafoam_tpu's at 1e-10; the port's psi solving
+  dafoam_tpu's system, |S (dR/dW^T psi - dJ/dW)| <= 1e-7 |S dJ/dW| with
+  both products dafoam_tpu's (S: the normalizeStates metric the solve
+  runs in); and the
+  port's totals with respect to both sides' inputs equal to dafoam_tpu's
+  dJ/dx - psi^T dR/dx at that psi at 1e-8 (a total that cancels below
+  1e-4 of its side's largest at 1e-12 of the largest).
+
+The noise keeps every face off a kink. At the unmoved CHT state two
+pairs of slab cells have equal T to rounding; there the limiter of the
+laplacian's explicit non-orthogonal correction (fvm._limit_correction)
+acts on a correction that is rounding noise, and its derivative, a whole
+face conductance, takes that noise's sign: dafoam_tpu's jitted and eager
+vjps differ there by 129 of 3.7e4, and v^T dR/dW by 800 of 4.5e4.
+
+dafoam_tpu's side runs under jax.jit, once per case (module fixture): its
+coupled primal with the interface data, and one function of psi; its
+compute_geometry is jitted too (test_torch_cases.jax_geometry_jitted).
 """
 
 import numpy as np
@@ -28,9 +39,12 @@ import torch
 from dafoam_tpu_torch import convert
 from dafoam_tpu_torch.adjoint.solver import _grad, _requiring_grad, vjp
 from dafoam_tpu_torch.coupling import cht as cht_mod
+from dafoam_tpu_torch.examples import cht_heated_plate as cht_ex
+from dafoam_tpu_torch.examples import fsi_flexible_wall as fsi_ex
 from dafoam_tpu_torch.linalg.krylov import tnorm
 from dafoam_tpu_torch.utils import tree
-from test_torch_cases import LAYOUTS, assert_close, from_layout, to_layout
+from test_torch_cases import (LAYOUTS, assert_close, from_layout,
+                              jax_geometry_jitted, to_layout)
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -41,11 +55,14 @@ ADJ = {"restart": 600, "rel_tol": 1e-12, "max_iters": 600}
 # or runs past its convergence would amplify rounding step by step
 TIGHT = {"pMaxIters": 500, "pRelTol": 1e-12, "uMaxIters": 300,
          "uRelTol": 1e-12, "turbMaxIters": 300, "turbRelTol": 1e-12}
-
+NOISE = 1e-6
 
 # the heat-transfer primal is linear: its loop stops after its first
 # exact solve instead of running to its cap of 100 against 1e-10
-SOLID_TOL = {"primalMinResTol": 1e-6}
+SOLID_OVER = {"cht": {"primalMinResTol": 1e-6},
+              "fsi": {"primalMinResTol": 0.0, "primalMaxIters": 8}}
+CASES = {"cht": ("fluid", "Tout", ("bc", "T", "ymin")),
+         "fsi": ("fluid", "drag", ("params", "E"))}
 
 
 def _pin(opts, iters):
@@ -53,106 +70,38 @@ def _pin(opts, iters):
                 primalLinearSolver=dict(TIGHT))
 
 
-def cht_jax():
-    """tests/test_cht.py:build with the fluid's counts pinned (the port's
-    example keeps a copy of its options)."""
-    from dafoam_tpu.coupling import CHTCoupling
+def jax_coupling(case):
+    """tests/test_cht.py:build / tests/test_fsi.py:build with the fluid's
+    counts pinned (the port's examples keep a copy of their options)."""
+    from dafoam_tpu.coupling import CHTCoupling, FSICoupling
     from dafoam_tpu.mesh import box_hex_mesh
     from dafoam_tpu.solvers import make_solver
-    from dafoam_tpu_torch.examples import cht_heated_plate as ex
 
-    pts_f, topo_f = box_hex_mesh(12, 6, 1, (1.0, 0.1, 0.01),
-                                 kinds={"zmin": "empty", "zmax": "empty",
-                                        "ymin": "wall", "ymax": "wall"})
-    pts_s, topo_s = box_hex_mesh(12, 4, 1, (1.0, 0.05, 0.01),
-                                 kinds={"zmin": "empty", "zmax": "empty"})
-    pts_s = pts_s.copy()
-    pts_s[:, 1] -= 0.05
-    fluid = make_solver(_pin(ex.fluid_options(), N_SIMPLE), topo_f, pts_f)
-    solid = make_solver(ex.solid_options(**SOLID_TOL), topo_s, pts_s)
-    return CHTCoupling(fluid, solid, "ymin", "ymax")
-
-
-def cht_torch(layout):
-    from dafoam_tpu_torch.coupling import CHTCoupling
-    from dafoam_tpu_torch.examples import cht_heated_plate as ex
-
-    fluid, solid = ex.build(
-        "cpu", F64,
-        fluid_over=_pin({"meshFaceLayout": layout}, N_SIMPLE),
-        solid_over=dict(SOLID_TOL, meshFaceLayout=layout))
-    return CHTCoupling(fluid, solid, "ymin", "ymax")
-
-
-def fsi_options():
-    """tests/test_fsi.py:build's options."""
-    zero = [0.0, 0.0, 0.0]
-    fluid = {
-        "solverName": "DASimpleFoam", "turbulenceModel": "None",
-        "transportProperties": {"nu": 1e-3},
-        "boundaryConditions": {
-            "U": {"xmin": {"type": "fixedValue", "value": [1.0, 0.0, 0.0]},
-                  "xmax": {"type": "zeroGradient"},
-                  "ymin": {"type": "fixedValue", "value": zero},
-                  "ymax": {"type": "fixedValue", "value": zero}},
-            "p": {"xmin": {"type": "zeroGradient"},
-                  "xmax": {"type": "fixedValue", "value": 0.0},
-                  "ymin": {"type": "zeroGradient"},
-                  "ymax": {"type": "zeroGradient"}},
-        },
-        "initialFields": {"U": [1.0, 0.0, 0.0], "p": 0.0},
-        "relaxationFactors": {"fields": {"p": 0.2}, "equations": {"U": 0.5}},
-        "function": {"drag": {"type": "force", "patches": ["ymin"],
-                              "directionMode": "fixedDirection",
-                              "direction": [1.0, 0.0, 0.0], "scale": 1.0}},
-        "normalizeStates": {"U": 1.0, "p": 0.5, "phi": 1.0},
-    }
-    solid = {
-        "solverName": "DASolidDisplacementFoam",
-        "transportProperties": {"E": 5e4, "nuPoisson": 0.3,
-                                "rhoSolid": 1000.0},
-        "boundaryConditions": {
-            "D": {"xmin": {"type": "fixedValue", "value": zero},
-                  "xmax": {"type": "fixedValue", "value": zero},
-                  "ymin": {"type": "fixedValue", "value": zero},
-                  "ymax": {"type": "fixedGradient", "value": zero}},
-        },
-        "initialFields": {"D": zero},
-        "primalMinResTol": 0.0, "primalMaxIters": 8,
-        "relaxationFactors": {"fields": {"D": 0.9}, "equations": {}},
-        "function": {},
-        "normalizeStates": {"D": 1e-4},
-    }
-    return _pin(fluid, N_SIMPLE), solid
-
-
-def fsi_build(pkg, layout="canonical"):
-    if pkg == "jax":
-        from dafoam_tpu.coupling import FSICoupling
-        from dafoam_tpu.mesh import box_hex_mesh
-        from dafoam_tpu.solvers import make_solver as mk
+    if case == "cht":
+        ex, make = cht_ex, CHTCoupling
+        pts_f, topo_f = box_hex_mesh(12, 6, 1, (1.0, 0.1, 0.01),
+                                     kinds={"zmin": "empty", "zmax": "empty",
+                                            "ymin": "wall", "ymax": "wall"})
+        pts_s, topo_s = box_hex_mesh(12, 4, 1, (1.0, 0.05, 0.01),
+                                     kinds={"zmin": "empty",
+                                            "zmax": "empty"})
+        pts_s = pts_s.copy()
+        pts_s[:, 1] -= 0.05
     else:
-        from dafoam_tpu_torch.coupling import FSICoupling
-        from dafoam_tpu_torch.mesh import box_hex_mesh
-        from dafoam_tpu_torch.solvers import make_solver
-
-        def mk(o, t, p):
-            return make_solver(dict(o, meshFaceLayout=layout), t, p,
-                               device="cpu", dtype=F64)
-    opts_f, opts_s = fsi_options()
-    pts_f, topo_f = box_hex_mesh(10, 5, 1, (1.0, 0.1, 0.01),
-                                 kinds={"zmin": "empty", "zmax": "empty",
-                                        "ymin": "wall", "ymax": "wall"})
-    pts_s, topo_s = box_hex_mesh(10, 3, 1, (1.0, 0.02, 0.01),
-                                 kinds={"zmin": "empty", "zmax": "empty"})
-    pts_s = pts_s.copy()
-    pts_s[:, 1] -= 0.02
-    return FSICoupling(mk(opts_f, topo_f, pts_f), mk(opts_s, topo_s, pts_s),
-                       "ymin", "ymax")
+        ex, make = fsi_ex, FSICoupling
+        (pts_f, topo_f), (pts_s, topo_s) = fsi_ex.meshes(box=box_hex_mesh)
+    fluid = make_solver(_pin(ex.fluid_options(), N_SIMPLE), topo_f, pts_f)
+    solid = make_solver(ex.solid_options(**SOLID_OVER[case]), topo_s, pts_s)
+    return make(fluid, solid, "ymin", "ymax")
 
 
-CASES = {"cht": ("fluid", "Tout", ("bc", "T", "ymin")),
-         "fsi": ("fluid", "drag", ("params", "E"))}
+def torch_coupling(case, layout):
+    kw = {"fluid_over": _pin({"meshFaceLayout": layout}, N_SIMPLE),
+          "solid_over": dict(SOLID_OVER[case], meshFaceLayout=layout)}
+    if case == "cht":
+        fluid, solid = cht_ex.build("cpu", F64, **kw)
+        return cht_mod.CHTCoupling(fluid, solid, "ymin", "ymax")
+    return fsi_ex.build("cpu", F64, **kw)
 
 
 def _np_tree(t):
@@ -162,47 +111,59 @@ def _np_tree(t):
 
 @pytest.fixture(scope="module")
 def jax_side():
-    """dafoam_tpu's coupled primal per case, and one jitted function of
-    psi: (R(W), dJ/dW, (dJ/dx_f, dJ/dx_s), (psi^T dR/dx_f, psi^T dR/dx_s))
-    at its state."""
+    """dafoam_tpu's coupled primal per case, the state the adjoint is
+    held at, a seeded random v, and one jitted function of psi: (R(W),
+    dJ/dW, (dJ/dx_f, dJ/dx_s), (psi^T dR/dW, psi^T dR/dx_f, psi^T
+    dR/dx_s), v^T dR/dW) there."""
     import jax
+    import jax.numpy as jnp
 
+    with jax_geometry_jitted():
+        yield _jax_side(jax, jnp)
+
+
+def _jax_side(jax, jnp):
     out = {}
-    for case in CASES:
-        cpl = cht_jax() if case == "cht" else fsi_build("jax")
+    for case, (side, func, _) in CASES.items():
+        cpl = jax_coupling(case)
         f, s = cpl.fluid, cpl.solid
         inf, ins = f.make_inputs(), s.make_inputs()
-        sf, ss, _ = cpl.solve_primal(f.init_state(), s.init_state(), inf,
-                                     ins, n_outer=N_OUTER)
-        side, func, _ = CASES[case]
-        W = {"fluid": sf, "solid": ss}
 
-        def J(w, xf, xs, cpl=cpl, side=side, func=func):
-            return cpl.eval_function(w, xf, xs, side, func) \
-                if hasattr(cpl, "eval_function") else _cht_J(cpl, w, xf, xs,
-                                                             side, func)
+        def primal(inf, ins, cpl=cpl, case=case):
+            sf, ss, _ = cpl.solve_primal(cpl.fluid.init_state(),
+                                         cpl.solid.init_state(), inf, ins,
+                                         n_outer=N_OUTER)
+            diag = cpl.interface_mismatch(sf, ss, inf, ins) \
+                if case == "cht" else \
+                jnp.max(jnp.abs(cpl._solid_disp_b(ss, ins)))
+            return sf, ss, diag
 
-        def products(W, xf, xs, psi, cpl=cpl, J=J):
-            dJdW = jax.grad(lambda w: J(w, xf, xs))(W)
-            dJ = jax.grad(lambda a, b: J(W, a, b), argnums=(0, 1))(xf, xs)
-            r, rx = jax.vjp(lambda a, b: cpl.residuals(W, a, b), xf, xs)
-            return r, dJdW, dJ, rx(psi)
+        sf, ss, diag = _np_tree(jax.jit(primal)(inf, ins))
+        rng = np.random.default_rng(0)
+        ns = s.option["normalizeStates"]
+        ss_adj = {k: v + NOISE * ns[k] * rng.standard_normal(v.shape)
+                  for k, v in ss.items()}
 
-        diag = cpl.interface_mismatch(sf, ss, inf, ins) if case == "cht" \
-            else np.max(np.abs(np.asarray(cpl._solid_disp_b(ss, ins))))
+        def J(w, xf, xs, cpl=cpl, side=side, func=func, case=case):
+            if case == "fsi":
+                return cpl.eval_function(w, xf, xs, side, func)
+            a, b = cpl._apply_coupling(xf, xs, w["fluid"], w["solid"])
+            return cpl.fluid.eval_function(func, w["fluid"], a)
+
+        def products(W, xf, xs, psi, v, cpl=cpl, J=J):
+            dJ = jax.grad(J, argnums=(0, 1, 2))(W, xf, xs)
+            r, f_vjp = jax.vjp(cpl.residuals, W, xf, xs)
+            return r, dJ[0], dJ[1:], f_vjp(psi), f_vjp(v)[0]
+
         fn = jax.jit(products)
-        out[case] = {"sf": _np_tree(sf), "ss": _np_tree(ss),
+        W = {"fluid": sf, "solid": ss_adj}
+        v = jax.tree_util.tree_map(lambda a: rng.standard_normal(a.shape),
+                                   W)
+        out[case] = {"sf": sf, "ss": ss, "ss_adj": ss_adj, "v": v,
                      "diag": float(diag), "nf": f.topo.n_faces,
-                     "products": lambda psi, fn=fn, W=W, inf=inf, ins=ins:
-                     _np_tree(fn(W, inf, ins, psi))}
+                     "products": lambda psi, fn=fn, W=W, v=v, inf=inf,
+                     ins=ins: _np_tree(fn(W, inf, ins, psi, v))}
     return out
-
-
-def _cht_J(cpl, w, xf, xs, side, func):
-    inf, ins = cpl._apply_coupling(xf, xs, w["fluid"], w["solid"])
-    if side == "fluid":
-        return cpl.fluid.eval_function(func, w["fluid"], inf)
-    return cpl.solid.eval_function(func, w["solid"], ins)
 
 
 def _flat(tree, prefix=""):
@@ -217,9 +178,9 @@ def _flat(tree, prefix=""):
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("case", list(CASES))
-def test_coupled_primal_and_totals(jax_side, monkeypatch, case, layout):
+def test_coupled_primal_and_totals(jax_side, case, layout):
     want = jax_side[case]
-    cpl = cht_torch(layout) if case == "cht" else fsi_build("torch", layout)
+    cpl = torch_coupling(case, layout)
     f, s = cpl.fluid, cpl.solid
     inf, ins = f.make_inputs(), s.make_inputs()
 
@@ -239,50 +200,47 @@ def test_coupled_primal_and_totals(jax_side, monkeypatch, case, layout):
     if case == "fsi":
         assert want["diag"] > 1e-9          # the plate deflects
 
-    # the coupled residual and adjoint at dafoam_tpu's state
-    sf = convert.state_from_numpy(to_layout(want["sf"], f.topo, want["nf"]),
-                                  "cpu", F64)
-    ss = convert.state_from_numpy(want["ss"], "cpu", F64)
+    # the coupled residual and adjoint at dafoam_tpu's state, the solid's
+    # moved off the limiter's kink
+    def carried(fluid_np, solid_np):
+        return {"fluid": convert.state_from_numpy(
+                    to_layout(fluid_np, f.topo, want["nf"]), "cpu", F64),
+                "solid": convert.state_from_numpy(solid_np, "cpu", F64)}
+
+    W = carried(want["sf"], want["ss_adj"])
     side, func, leaf = CASES[case]
-    solved = []
-    gmres = cht_mod.gmres
-
-    def capture(*a, **kw):
-        solved.append(gmres(*a, **kw))
-        return solved[-1]
-
-    monkeypatch.setattr(cht_mod, "gmres", capture)
-    tf, ts, info = cpl.solve_adjoint(sf, ss, inf, ins, side, func, **ADJ)
+    tf, ts, info, psi = cpl.solve_adjoint(W["fluid"], W["solid"], inf, ins,
+                                          side, func, return_psi=True,
+                                          **ADJ)
     assert info.converged, info
-    with torch.no_grad():
-        scales = {"fluid": f.state_scales(f.geometry(inf)),
-                  "solid": s.state_scales(s.geometry(ins))}
-        r = cpl.residuals({"fluid": sf, "solid": ss}, inf, ins)
-    psi = cht_mod._scale_tree(solved[0][0], scales, invert=True)
     to_np = {"fluid": lambda t: from_layout(t, f.topo),
              "solid": convert.state_to_numpy}
     psi_np = {sd: to_np[sd](psi[sd]) for sd in psi}
-    jr, jdJdW, (dJf, dJs), (rx_f, rx_s) = want["products"](psi_np)
+    jr, jdJdW, (dJf, dJs), (jrw, rx_f, rx_s), jrv = \
+        want["products"](psi_np)
 
-    for sd in ("fluid", "solid"):
-        for k, t in to_np[sd](r[sd]).items():
-            assert_close(t, jr[sd][k], 1e-10, f"{case} R_{sd} {k}")
-    # psi solves the adjoint system in the normalizeStates metric the
-    # solve runs in. The true residual, not GMRES's estimate (<= 1e-12):
-    # |S (dR/dW^T psi - dJ/dW)| <= 1e-7 |S dJ/dW| (1.0e-8 on the dense
-    # layout, whose padded faces add identity rows; ~1e-13 canonical)
-    w = _requiring_grad({"fluid": sf, "solid": ss})
+    with torch.no_grad():
+        r = cpl.residuals(W, inf, ins)
+    w = _requiring_grad(W)
     with torch.enable_grad():
         J = cpl.eval_function(w, inf, ins, side, func)
-    dJdW_t = _grad(J, w)
-    _, f_vjp = vjp(lambda ww: cpl.residuals(ww, inf, ins),
-                   {"fluid": sf, "solid": ss})
-    b = cht_mod._scale_tree(dJdW_t, scales)
-    res = tree.tmap(torch.sub, cht_mod._scale_tree(f_vjp(psi), scales), b)
+    dJdW = _grad(J, w)
+    _, f_vjp = vjp(lambda ww: cpl.residuals(ww, inf, ins), W)
+    rv = f_vjp(carried(want["v"]["fluid"], want["v"]["solid"]))
+    for sd in ("fluid", "solid"):
+        for got, ref, what in ((r, jr, "R"), (dJdW, jdJdW, "dJ/dW"),
+                               (rv, jrv, "v^T dR/dW")):
+            bar = 1e-12 if what == "dJ/dW" else 1e-10
+            for k, t in to_np[sd](got[sd]).items():
+                assert_close(t, ref[sd][k], bar, f"{case} {what} {sd} {k}")
+
+    # psi solves dafoam_tpu's system in the normalizeStates metric: its
+    # true residual, not GMRES's estimate (<= 1e-12)
+    scales = cht_mod.state_scales(f, s, inf, ins)
+    b = cht_mod._scale_tree(carried(jdJdW["fluid"], jdJdW["solid"]), scales)
+    res = tree.tmap(torch.sub, cht_mod._scale_tree(
+        carried(jrw["fluid"], jrw["solid"]), scales), b)
     assert float(tnorm(res)) <= 1e-7 * float(tnorm(b))
-    for sd in psi:
-        for k, t in to_np[sd](dJdW_t[sd]).items():
-            assert_close(t, jdJdW[sd][k], 1e-12, f"{case} dJ/dW {sd} {k}")
 
     # the totals: dafoam_tpu's dJ/dx - psi^T dR/dx at the port's psi
     for got, dj, rx, what in ((tf, dJf, rx_f, "fluid"),

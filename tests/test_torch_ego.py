@@ -227,6 +227,7 @@ def test_mdo_modules_load_no_jax():
         "import dafoam_tpu_torch.examples.naca0012_drag_opt\n"
         "import dafoam_tpu_torch.examples.field_inversion_sa\n"
         "import dafoam_tpu_torch.examples.cht_heated_plate\n"
+        "import dafoam_tpu_torch.examples.fsi_flexible_wall\n"
         "from dafoam_tpu_torch.ops import dia_kernels\n"
         "new = set(sys.modules) - before\n"
         "assert not [m for m in new if m.split('.')[0] in "

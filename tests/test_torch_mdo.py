@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_cases import LAYOUTS, assert_close
+from test_torch_cases import LAYOUTS, assert_close, jax_geometry_jitted
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -215,7 +215,8 @@ def test_input_registry_every_type():
     opts["inputInfo"] = INPUT_INFO
     jpts, jtopo = cavity_mesh("jax")
     tpts, ttopo = cavity_mesh("torch")
-    js = jmake(opts, jtopo, jpts)
+    with jax_geometry_jitted():
+        js = jmake(opts, jtopo, jpts)
     ts = tmake(opts, ttopo, tpts, device="cpu", dtype=F64)
     jr, tr = JReg(js, INPUT_INFO), InputRegistry(ts, INPUT_INFO)
     rng = np.random.default_rng(4)
@@ -308,11 +309,16 @@ def jax_opt():
     from dafoam_tpu.solvers import make_solver
 
     pts, topo = cavity_mesh("jax")
-    s = make_solver(cavity_options(), topo, pts)
-    ffd = JFFD(pts, nx=4, ny=3, nz=2, bounds=FFD_BOUNDS)
-    prob = ShapeOptProblem(s, jax_geo(ffd, jnp.asarray(pts, s.dtype)),
-                           "lidForce")
-    return _opt_run(prob, len(IX))
+    # jitMode "traced": one compile of the adjoint for both gradients, where
+    # the default recompiles it at each design (same solve)
+    opts = cavity_options()
+    opts["adjEqnOption"] = dict(opts["adjEqnOption"], jitMode="traced")
+    with jax_geometry_jitted():
+        s = make_solver(opts, topo, pts)
+        ffd = JFFD(pts, nx=4, ny=3, nz=2, bounds=FFD_BOUNDS)
+        prob = ShapeOptProblem(s, jax_geo(ffd, jnp.asarray(pts, s.dtype)),
+                               "lidForce")
+        return _opt_run(prob, len(IX))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
@@ -365,8 +371,8 @@ def _deformed_cavity(pkg):
 
 @pytest.mark.parametrize("mesh", ["cavity", "deformed"])
 def test_check_mesh_report(mesh):
+    from dafoam_tpu.mesh import geometry as jgeometry
     from dafoam_tpu.mesh.check import check_mesh as jcheck
-    from dafoam_tpu.mesh.geometry import compute_geometry as jgeom
     from dafoam_tpu_torch.mesh.check import check_mesh
     from dafoam_tpu_torch.mesh.geometry import compute_geometry
     from dafoam_tpu_torch.mesh.topology import to_dia_dense
@@ -379,7 +385,9 @@ def test_check_mesh_report(mesh):
     else:
         pts, topo = _deformed_cavity("torch")
         jpts, jtopo = pts, cavity_mesh("jax")[1]
-    jok, jrep = jcheck(jgeom(jnp.asarray(jpts), jtopo), jtopo, th)
+    with jax_geometry_jitted():
+        jgeom = jgeometry.compute_geometry(jnp.asarray(jpts), jtopo)
+    jok, jrep = jcheck(jgeom, jtopo, th)
     for t in (topo, to_dia_dense(topo)):
         ok, rep = check_mesh(compute_geometry(torch.as_tensor(pts), t), t,
                              th)

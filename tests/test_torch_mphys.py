@@ -13,7 +13,9 @@ dafoam_tpu (CPU, f64), on tests/test_mphys.py's 10x10 lid-driven cavity:
 - DAFoamForces against dafoam_tpu's at dafoam_tpu's state (output at
   1e-12, reverse product at 1e-10); DAFoamThermal and DAFoamFaceCoords on
   tests/test_mphys.py's heated slab against the port's own OutputRegistry
-  and geometry (glue over calls already held to dafoam_tpu);
+  and geometry, and against dafoam_tpu's components at a state and points
+  moved by seeded noise (output and reverse product at 1e-12, face
+  coordinates at 1e-14);
 - DAFoamLinearConstraint;
 - DAFoamBuilder's subsystems, OutputRegistry's function and residual
   outputs (exactly the solver's own calls), and utils/vtkio's volume and
@@ -28,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_cases import assert_close
+from test_torch_cases import assert_close, jax_geometry_jitted
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -105,8 +107,9 @@ def jax_runs():
     fixed-point route is held against it too: both routes converge to the
     same totals (rel 6.6e-10 apart in the port on this case), and a
     second dafoam_tpu model would double the file's time."""
-    prob, solver, _, _ = aero_model("jax", options("Krylov"))
-    run = _drive(prob)
+    with jax_geometry_jitted():
+        prob, solver, _, _ = aero_model("jax", options("Krylov"))
+        run = _drive(prob)
     return {"Krylov": run, "fixedPoint": run, "forces": (solver, run[2])}
 
 
@@ -314,6 +317,42 @@ def test_thermal_and_facecoords():
     assert_close(outs2["x_thermal_surface0"], np.concatenate([cf, cf])
                  .ravel(), 1e-15, "face coords")
     np.testing.assert_allclose(cf[:, 1], 0.05, atol=1e-12)
+
+    # against dafoam_tpu's components, at a state and points moved by
+    # seeded noise so that every face has its own near-wall T and kappa/d
+    from dafoam_tpu.mdo.mphys import DAFoamFaceCoords as JFaceCoords
+    from dafoam_tpu.mdo.mphys import DAFoamThermal as JThermal
+    from dafoam_tpu.mesh import box_hex_mesh as jbox
+    from dafoam_tpu.solvers import make_solver as jmake
+
+    rng = np.random.default_rng(11)
+    xyz = np.tile([1.0, 1.0, 0.0], xv.size // 3)
+    ins = {"thermal_states": w + rng.normal(size=w.size),
+           "thermal_vol_coords": xv + 1e-3 * xyz * rng.normal(size=xv.size)}
+    jpts, jtopo = jbox(12, 4, 1, (1.0, 0.05, 0.01),
+                       kinds={"zmin": "empty", "zmax": "empty"})
+    js = jmake(opts, jtopo, jpts)
+    outs, jouts, d, jd = {}, {}, {}, {}
+    for c, o, dd in ((DAFoamThermal(solver=s), outs, d),
+                     (JThermal(solver=js), jouts, jd)):
+        c.setup()
+        c.compute(ins, o)
+        dd.update({k: np.zeros_like(v) for k, v in ins.items()})
+        c.compute_jacvec_product(ins, dd, {"T_convect": seed}, "rev")
+    assert np.ptp(jouts["T_convect"][:nf]) > 0.1
+    assert np.ptp(jouts["T_convect"][nf:]) > 0.1
+    assert_close(outs["T_convect"], jouts["T_convect"], 1e-12, "thermal")
+    for k in d:
+        assert_close(d[k], jd[k], 1e-12, f"thermal rev {k}")
+    outs2, jouts2 = {}, {}
+    xin = {"thermal_vol_coords": ins["thermal_vol_coords"]}
+    fc.compute(xin, outs2)
+    jfc = JFaceCoords(solver=js)
+    jfc.setup()
+    with jax_geometry_jitted():
+        jfc.compute(xin, jouts2)
+    assert_close(outs2["x_thermal_surface0"], jouts2["x_thermal_surface0"],
+                 1e-14, "face coords")
 
 
 def test_linear_constraint():
