@@ -170,7 +170,25 @@ case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
    (f32, dense): CPL_OUTER block Gauss-Seidel iterations, then one
    CPL_GMRES-iteration coupled-adjoint GMRES cycle; finite states and
    totals, K1/K2 in the primal, no plain version anywhere (the coupled
-   residual forms A x face by face: no DIA kernel in the adjoint).
+   residual forms A x face by face: no DIA kernel in the adjoint);
+19. IO and utilities, after 18, on phase 5's case: the generated O-mesh
+   (525,312 points) written by write_polymesh through phase 5's dense
+   topology (the writer emits the canonical one) and read back by
+   read_polymesh, equal to the generated mesh array for array, every
+   ASCII file parsed by the native parser (native.COUNTS); the CLI's
+   meshinfo on the card; phase 5's state and inputs through
+   save_checkpoint / load_checkpoint bit for bit, and ckdiff of two copies
+   returning 0; a solver made from the mesh read from disk (dense layout,
+   the same topology as phase 5's), IO_ITERS SIMPLE iterations from the
+   loaded state against phase 5's solver from the same state (rel
+   IO_REL; bit-identity reported), one IO_ADJ-iteration fixed-point cycle
+   and the CD totals (finite); calc_force_per_s on the wing (traction x
+   |Sf| summed along x equal to CD at rel IO_REL, with its VTK),
+   probe_time_series equal to the indexed cell; dense_drdwt (raw and
+   normalized) of tests/test_jacdump.py's case in f64 on the card against
+   the vjp at JAC_REL, and write_jacobians refusing 512x512; the port's
+   Timer (block_on) times each step; K1/K2 in the primal, K3a and K3b in
+   the adjoint and totals, no plain version.
 
 ``--profile`` adds a torch.profiler table of one more SIMPLE iteration, of
 one (I - dG^T) product, of one residual-form iteration (a residual vjp
@@ -181,8 +199,9 @@ time step and of one reverse step (phase 11's). The last line of
 standard output is one JSON object with "ok" and the device; the line
 before it repeats the card's name and power limit, and the one before
 that lists every kernel with its launches on the full-width paths
-(phases 5, 5b, 5c, 6, 6b, 6c, 6d, 8, 8b, 9, 9b, 10, 11, 11b and 12-18,
-each counted from zero; "launches_by_path" splits them),
+(phases 5, 5b, 5c, 6, 6b, 6c, 6d, 8, 8b, 9, 9b, 10, 11, 11b and 12-19,
+each counted from zero; "launches_by_path" splits them, phase 19's as
+"io_primal" and "io_adjoint"),
 its error against the plain version, its times and its bound. The script
 prints its total wall seconds before those lines.
 """
@@ -2774,6 +2793,308 @@ def phase_coupling_full(torch, dk):
     return cht_counts + fsi_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 19: IO and utilities at full width
+# ---------------------------------------------------------------------------
+
+IO_ITERS = 20         # SIMPLE iterations of each solver in phase 19
+IO_ADJ = 30           # fixed-point GMRES iterations of phase 19's cycle
+IO_REL = 1e-5         # the two solvers' states; traction x |Sf| against CD
+JAC_REL = 1e-12       # the dense dRdWT times v against the vjp (f64)
+
+
+def jacdump_options():
+    """tests/test_jacdump.py:make_case, the 5x4 scalar-transport case."""
+    return {
+        "solverName": "DAScalarTransportFoam",
+        "ddtScheme": "steadyState",
+        "transportProperties": {"DT": 0.05},
+        "boundaryConditions": {
+            "T": {"xmin": {"type": "fixedValue", "value": 1.0},
+                  "xmax": {"type": "zeroGradient"},
+                  "ymin": {"type": "fixedValue", "value": 0.0},
+                  "ymax": {"type": "zeroGradient"}},
+            "U": {"xmin": {"type": "fixedValue", "value": [1.0, 0.2, 0.0]},
+                  "xmax": {"type": "zeroGradient"},
+                  "ymin": {"type": "fixedValue", "value": [1.0, 0.2, 0.0]},
+                  "ymax": {"type": "zeroGradient"}},
+        },
+        "initialFields": {"T": 0.0},
+        "function": {"TMean": {"type": "patchMean", "patches": ["xmax"],
+                               "varName": "T", "scale": 1.0}},
+        "normalizeStates": {"T": 1.0},
+    }
+
+
+def _mib(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path)) / 2**20
+
+
+def _cli(cli, argv):
+    """(return code, standard output) of one CLI call."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-300)
+
+
+def _io_mesh(omesh, s, tmp, timer):
+    """Phase 19's mesh round trip: (points, topology) read from disk."""
+    import numpy as np
+    from dafoam_tpu_torch import native
+    from dafoam_tpu_torch.mesh.polymesh import read_polymesh, write_polymesh
+    from dafoam_tpu_torch.mesh.topology import from_dia_dense
+    from dafoam_tpu_torch.scripts import cli
+
+    with timer.phase("generate"):
+        pts, topo = omesh(n_wrap=FULL, n_radial=FULL, radius=15.0,
+                          first_cell=4e-3)
+    case = os.path.join(tmp, "naca0012")
+    # phase 5's dense-DIA topology: the writer emits the canonical one
+    with timer.phase("write_polymesh"):
+        pm = write_polymesh(case, pts, s.topo)
+    t_write = timer.report()["write_polymesh"]
+    native.reset_counts()
+    t0 = time.perf_counter()
+    with timer.phase("read_polymesh"):
+        pts2, topo2 = read_polymesh(case)
+    t_read = time.perf_counter() - t0
+    counts = dict(native.COUNTS)
+    say(f"[io] {FULL}x{FULL} O-mesh, {topo.n_points} points, "
+        f"{topo.n_faces} faces: write_polymesh {t_write:.2f} s "
+        f"({_mib(pm):.1f} MiB of ASCII), read_polymesh {t_read:.2f} s "
+        f"({_mib(pm) / t_read:.0f} MiB/s); parsed by {counts}")
+    check(np.array_equal(pts2, pts) and pts2.dtype == pts.dtype,
+          "read-back points differ from the generated mesh")
+    canonical = from_dia_dense(s.topo)
+    for name in ("face_verts", "face_nverts", "owner", "neighbour"):
+        b = getattr(topo, name)
+        for label, t in (("read-back", topo2), ("phase 5's", canonical)):
+            a = getattr(t, name)
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"{label} {name} differs from the generated mesh")
+    check([(p.name, p.start, p.size, p.kind) for p in topo2.patches]
+          == [(p.name, p.start, p.size, p.kind) for p in topo.patches]
+          and (topo2.n_cells, topo2.n_internal)
+          == (topo.n_cells, topo.n_internal), "read-back patches differ")
+    check(counts == {"labels": 2, "points": 1, "faces": 1,
+                     "labels_numpy": 0, "points_numpy": 0,
+                     "faces_numpy": 0},
+          f"the native parser did not parse every file: {counts}")
+
+    with timer.phase("meshinfo"):
+        rc, out = _cli(cli, ["meshinfo", case, "--device", DEVICE])
+    head = out.splitlines()[0]
+    say(f"[io] meshinfo on {DEVICE} (rc {rc}): {head}; "
+        f"{out.splitlines()[-1]}")
+    check(rc == 0 and head == f"cells={topo.n_cells} faces={topo.n_faces} "
+          f"internal={topo.n_internal} points={topo.n_points}",
+          f"meshinfo: {out}")
+    return pts2, topo2
+
+
+def _io_checkpoint(inputs, st, tmp, timer):
+    """Phase 19's checkpoints: the loaded state (numpy)."""
+    import numpy as np
+    from dafoam_tpu_torch.scripts import cli
+    from dafoam_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                   save_checkpoint)
+
+    a, b = (os.path.join(tmp, n) for n in ("a.npz", "b.npz"))
+    meta = {"case": f"naca0012 {FULL}x{FULL}", "iterations": ITERS}
+    with timer.phase("save_checkpoint"):
+        save_checkpoint(a, st, inputs, meta)
+    with timer.phase("load_checkpoint"):
+        state, x, m = load_checkpoint(a)
+    save_checkpoint(b, st, inputs, meta)
+    for k, v in st.items():
+        v = v.detach().cpu().numpy()
+        check(state[k].dtype == v.dtype and np.array_equal(state[k], v),
+              f"checkpoint state {k} differs")
+    check(np.array_equal(x["points"], inputs["points"].cpu().numpy())
+          and float(x["params"]["nu"]) == float(inputs["params"]["nu"])
+          and m == meta, "checkpoint inputs or meta differ")
+    rc, out = _cli(cli, ["ckdiff", a, b])
+    say(f"[io] checkpoint {os.path.getsize(a) / 2**20:.1f} MiB "
+        f"(npz, compressed): {len(out.splitlines())} arrays, ckdiff rc {rc}")
+    check(rc == 0, f"ckdiff of two copies: {out}")
+    return state
+
+
+def _io_jacdump(torch, make_solver, box, timer):
+    """Phase 19's Jacobian dump: tests/test_jacdump.py's case in f64."""
+    import numpy as np
+    from dafoam_tpu_torch.adjoint.solver import vjp
+    from dafoam_tpu_torch.utils.jacdump import dense_drdwt
+
+    f64 = torch.float64
+    pts, topo = box(5, 4, 1, (1.0, 1.0, 0.1),
+                    kinds={"zmin": "empty", "zmax": "empty"})
+    js = make_solver(jacdump_options(), topo, pts, device=DEVICE, dtype=f64)
+    x = js.make_inputs()
+    x["params"]["U"] = torch.tensor([1.0, 0.2, 0.0], dtype=f64,
+                                    device=DEVICE).repeat(topo.n_cells, 1)
+    rng = np.random.default_rng(2)
+    st = {"T": torch.as_tensor(rng.random(topo.n_cells), dtype=f64,
+                               device=DEVICE)}
+    lay = js.layout
+    v = torch.as_tensor(rng.standard_normal(topo.n_cells), dtype=f64,
+                        device=DEVICE)
+    sv = lay.pack({k: torch.broadcast_to(w, st[k].shape) for k, w in
+                   js.state_scales(js.geometry(x)).items()})
+    errs = []
+    with timer.phase("dense_drdwt"):
+        for fn, normalized, sc in ((js.residuals, False, None),
+                                   (js._norm_residuals, True, sv)):
+            J = dense_drdwt(js, st, x, normalized=normalized)
+            _, f_vjp = vjp(lambda w: lay.pack(fn(lay.unpack(w), x)),
+                           lay.pack(st))
+            want = f_vjp(v if sc is None else v / sc)
+            if sc is not None:
+                want = want * sc
+            got = torch.as_tensor(J @ v.cpu().numpy(), device=DEVICE)
+            errs.append(_rel_err(got, want))
+    say(f"[io] dense_drdwt on {DEVICE} ({js.topo.n_cells} cells, f64, "
+        f"dense layout {js.topo.dia_dense() is not None}): raw and "
+        f"normalized J^T v against the vjp, rel err {errs[0]:.3e}, "
+        f"{errs[1]:.3e}")
+    check(max(errs) <= JAC_REL, f"dense_drdwt against the vjp: {errs}")
+
+
+def phase_io_full(torch, dk, make_solver, omesh, box, s, inputs, st):
+    """Phase 19: the 512x512 case written to an OpenFOAM case, read back,
+    checkpointed, solved from disk (SIMPLE, one fixed-point adjoint cycle,
+    the totals) against phase 5's solver, post-processed, and the
+    Jacobian dump. Returns the primal's and the adjoint's counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from dafoam_tpu_torch.convert import state_from_numpy
+    from dafoam_tpu_torch.utils import prepost
+    from dafoam_tpu_torch.utils.jacdump import write_jacobians
+    from dafoam_tpu_torch.utils.timing import Timer
+
+    f32 = torch.float32
+    timer = Timer()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dafoam_io_")
+    try:
+        pts, topo = _io_mesh(omesh, s, tmp, timer)
+        state_np = _io_checkpoint(inputs, st, tmp, timer)
+
+        with timer.phase("make_solver", block_on=lambda: s19.points):
+            s19 = make_solver(bench_adjoint_options(), topo, pts,
+                              device=DEVICE, dtype=f32)
+        check(s19.topo.dia_dense() is not None
+              and s19.topo.dia_dense()[0] == s.topo.dia_dense()[0],
+              "the solver built from disk is not on phase 5's dense layout")
+        check(all(np.array_equal(getattr(s19.topo, k), getattr(s.topo, k))
+                  for k in ("face_verts", "owner", "neighbour"))
+              and torch.equal(s19.points, s.points),
+              "the solver built from disk has another mesh than phase 5's")
+        x19 = s19.make_inputs()
+        st_load = state_from_numpy(state_np, DEVICE, f32)
+
+        runs = {}
+        for tag, solver, x in (("phase5", s, inputs), ("disk", s19, x19)):
+            with overridden(solver.option, primalMinIters=IO_ITERS,
+                            primalMaxIters=IO_ITERS):
+                dk.reset_counts()
+                with timer.phase(f"simple_{tag}",
+                                 block_on=lambda: runs[tag][0]):
+                    runs[tag] = solver.run_primal(st_load, x)
+                runs[tag] += (dict(dk.COUNTS),)
+        (st5, info5, _), (st19, info19, io_counts) = (runs["phase5"],
+                                                      runs["disk"])
+        errs = {k: _rel_err(st19[k], st5[k]) for k in st19}
+        same = all(torch.equal(st19[k], st5[k]) for k in st19)
+        rep = timer.report()
+        say(f"[io] {IO_ITERS} SIMPLE iterations from the loaded state: from "
+            f"disk {rep['simple_disk']:.2f} s, max_res {info19.max_res:.4e}; "
+            f"phase 5's solver {rep['simple_phase5']:.2f} s, max_res "
+            f"{info5.max_res:.4e}; state rel diff "
+            + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+            + f"; bit-identical {same}; launch counts {io_counts}")
+        check(info19.iters == IO_ITERS and not info19.failed
+              and s19.states_valid(st19), f"primal from disk: {info19}")
+        check(max(errs.values()) <= IO_REL,
+              f"the solver from disk and phase 5's disagree: {errs}")
+        check_counts(io_counts, "io primal")
+
+        state = {k: v.detach() for k, v in st19.items()}
+        opt = dict(s19.option["adjEqnOption"], fpMaxIters=IO_ADJ,
+                   gmresRestart=IO_ADJ)
+        with overridden(s19.option, adjEqnOption=opt):
+            dk.reset_counts()
+            with timer.phase("solve_adjoint", block_on=lambda: psibar):
+                psibar, ainfo = s19.solve_adjoint(state, x19, "CD")
+            with timer.phase("total_derivative", block_on=lambda: tot):
+                tot = s19.total_derivative(state, x19, "CD", psibar)
+            adj_counts = dict(dk.COUNTS)
+        dnu = float(tot["params"]["nu"])
+        dpts = float(torch.linalg.norm(tot["points"]))
+        rep = timer.report()
+        say(f"[io] fixed-point adjoint from disk: {ainfo.iters} GMRES iters "
+            f"in {rep['solve_adjoint']:.2f} s, resid {ainfo.resid0:.6e} -> "
+            f"{ainfo.resid:.6e}; total_derivative "
+            f"{rep['total_derivative']:.2f} s: dCD/dnu {dnu!r}, "
+            f"||dCD/dpoints|| {dpts!r}; launch counts {adj_counts}")
+        check(all(bool(torch.isfinite(v).all()) for v in psibar.values())
+              and math.isfinite(dnu) and math.isfinite(dpts),
+              "io adjoint: psibar or the totals are not finite")
+        check_counts(adj_counts, "io adjoint", ADJOINT_KERNELS)
+
+        with timer.phase("calc_force_per_s"):
+            vtk = os.path.join(tmp, "wing.vtk")
+            fps = prepost.calc_force_per_s(s19, st19, x19, ["wing"],
+                                           vtk_path=vtk)
+        ni = s19.topo.n_internal
+        mags = s19.geometry(x19).magsf[ni:].double().cpu().numpy()
+        fx = float((fps[:, 0] * mags).sum())
+        cd = float(s19.run_function("CD", st19, x19))
+        wing = s19.topo.patch("wing")
+        say(f"[io] calc_force_per_s: {fps.shape} tractions, wing traction "
+            f"x |Sf| summed along x {fx!r} against CD {cd!r} (rel "
+            f"{abs(fx - cd) / abs(cd):.3e}); VTK "
+            f"{os.path.getsize(vtk) / 2**10:.0f} KiB, {wing.size} faces")
+        check(fps.shape == (s19.topo.n_boundary, 3)
+              and abs(fx - cd) <= IO_REL * abs(cd),
+              f"calc_force_per_s: {fx} against CD {cd}")
+        with timer.phase("probe_time_series"):
+            hist = torch.stack([st_load["p"], st19["p"]])
+            cc = s19.geometry(x19).cc
+            cell = topo.n_cells // 3
+            series = prepost.probe_time_series(hist, cc,
+                                               cc[cell].cpu().numpy())
+        check(np.array_equal(series, hist[:, cell].cpu().numpy()),
+              f"probe_time_series: {series} at cell {cell}")
+
+        _io_jacdump(torch, make_solver, box, timer)
+        try:
+            write_jacobians(os.path.join(tmp, "jac.npz"), s19, st19, x19)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        say(f"[io] write_jacobians at {FULL}x{FULL}: {refused}")
+        check("dense_limit" in refused,
+              f"write_jacobians did not refuse {FULL}x{FULL}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("[io] timer: " + ", ".join(f"{k} {v:.2f} s"
+                                   for k, v in timer.report().items())
+        + f"; phase 19 {time.perf_counter() - t_phase:.1f} s")
+    return io_counts, adj_counts
+
+
 def profile_unsteady(torch, hisa_run, pimple_run):
     """--profile: one AUSMPlusUp PTC iteration of phase 10 (its initial
     residual included), one PIMPLE time step and one reverse step of
@@ -2939,6 +3260,9 @@ def main():
     shape_counts = phase_shape_opt(torch, dk, s, st)
     mphys_counts = phase_mphys(torch, dk, s, st)
     cpl_counts = phase_coupling_full(torch, dk)
+    io_counts, io_adj_counts = phase_io_full(torch, dk, make_solver,
+                                             omesh_naca0012, box_hex_mesh,
+                                             s, inputs, st)
     phase_kernel_times(torch, dk, real, stats)
 
     if args.profile:
@@ -2982,7 +3306,8 @@ def main():
              "time_spectral_adjoint": ts_adj_counts,
              "shape_opt": shape_counts, "mphys": mphys_counts,
              **dict(zip(("cht_primal", "cht_adjoint", "fsi_primal",
-                         "fsi_adjoint"), cpl_counts))}
+                         "fsi_adjoint"), cpl_counts)),
+             "io_primal": io_counts, "io_adjoint": io_adj_counts}
     rows = []
     for name, meta in KERNELS.items():
         st_k = stats[name]

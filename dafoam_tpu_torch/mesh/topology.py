@@ -472,3 +472,29 @@ def to_dia_dense(topo: MeshTopology, max_offsets: int = 16):
         [new_of_old, np.arange(ni, topo.n_faces) + shift])
     object.__setattr__(out, "face_map_old2new", face_map)
     return out
+
+
+def from_dia_dense(topo: MeshTopology) -> MeshTopology:
+    """The canonical topology a dense-DIA one was built from.
+
+    ``to_dia_dense`` keeps ``face_map_old2new``; gathering every face array
+    through it drops the degenerate padded faces and restores the
+    canonical internal-face order and patch starts. A topology without the
+    dense layout is returned as it is.
+    """
+    if topo.dia_dense() is None:
+        return topo
+    fmap = getattr(topo, "face_map_old2new", None)
+    if fmap is None:
+        raise ValueError("dense-DIA topology without face_map_old2new")
+    ni = fmap.shape[0] - topo.n_boundary
+    shift = topo.n_internal - ni
+    out = MeshTopology(
+        n_cells=topo.n_cells, n_points=topo.n_points,
+        face_verts=topo.face_verts[fmap], face_nverts=topo.face_nverts[fmap],
+        owner=topo.owner[fmap], neighbour=topo.neighbour[fmap[:ni]],
+        n_internal=ni,
+        patches=tuple(Patch(name=p.name, start=p.start - shift, size=p.size,
+                            kind=p.kind) for p in topo.patches))
+    out.validate()
+    return out
