@@ -39,9 +39,9 @@ case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
    iterations (one BENCH_ITERS chunk); the state must stay finite and
    valid, the max residual must fall, CD must be finite, and the kernel
    launch counts must be positive with the plain counts at zero;
-5b. line PC: 20 SIMPLE iterations from phase 5's state with pPC "line"
-   (ADI line solves, BiCGStab); p iterations per solve against Jacobi-CG's
-   cap of 50;
+5b. line PC: PC_ITERS SIMPLE iterations from phase 5's state with pPC
+   "line" (ADI line solves, BiCGStab); p iterations per solve against
+   Jacobi-CG's cap of 50;
 6. full-width adjoint: from phase 5's state, one solve_adjoint call with
    bench.py's adjEqnOption (one 120-iteration restart cycle, deflation 16,
    mg smoother, fpRelaxFields p 0.7, normalized), then one
@@ -61,9 +61,10 @@ case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
    at 1e-8, dLidForce/dnu, dLidForce/dU_lid,x and ||dLidForce/dpoints|| at
    1e-6 against tests/golden/values.json; K1, K2 and K3a launched, no
    plain version;
-5c. multigrid PC: 20 SIMPLE iterations from phase 5's state with pPC "mg"
-   (one V-cycle per BiCGStab preconditioning); p iterations per solve
-   against Jacobi-CG's cap and phase 5b's line PC, ms per iteration;
+5c. multigrid PC: PC_ITERS SIMPLE iterations from phase 5's state with
+   pPC "mg" (one V-cycle per BiCGStab preconditioning); p iterations per
+   solve against Jacobi-CG's cap and phase 5b's line PC, ms per
+   iteration;
 6c. fpRemat: 20 fixed-point GMRES iterations from phase 5's state with and
    without adjEqnOption.fpRemat; ms per product and peak device memory of
    each; psibar must agree at rel 1e-5;
@@ -188,7 +189,29 @@ case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
    normalized) of tests/test_jacdump.py's case in f64 on the card against
    the vjp at JAC_REL, and write_jacobians refusing 512x512; the port's
    Timer (block_on) times each step; K1/K2 in the primal, K3a and K3b in
-   the adjoint and totals, no plain version.
+   the adjoint and totals, no plain version;
+20. the halo route (dafoam_tpu_torch.parallel), after 19:
+   tests/test_sharding.py's cavity on a FULL x FULL box (262,144 cells)
+   reordered into SHARD_PARTS RCB parts, canonical layout on both
+   routes: the plan's build time, cut and exchange volume; in f64,
+   SHARD_ITERS fixed-work SIMPLE outers (fvsolve.fixed_inner, smoother
+   budgets SHARD_P_SWEEPS / SHARD_U_SWEEPS), SHARD_FP Richardson sweeps of
+   the fixed-point adjoint and the lidF totals on the unsharded route and
+   on the local halo route, held at tests/test_sharding.py's bars (U atol
+   1e-11, J abs 1e-12 or rel 1e-10, dJ/dnu rel 1e-10, dJ/dpoints 1e-10 of
+   the largest entry), no DIA product on the halo route; one f64 halo
+   product and its vjp on phase 5's O-mesh in SHARD_PARTS parts against
+   the unsharded product; in f32 on both routes the us per LDU product,
+   ms per SIMPLE iteration, ms per fixed-point adjoint product and device
+   kernels per SIMPLE iteration; a SHARD_BANDED x SHARD_BANDED box in
+   SHARD_PARTS parts (58 bands, inside the DIA kernels' 64): every kernel
+   against its plain version at its offsets, and a short fixed-work run
+   whose unsharded products launch every DIA kernel at those offsets,
+   against the halo route; the distributed transport on a 1-rank
+   NCCL group (no halo traffic: a wiring check) against the local one
+   and, where the call has two or more cards, min(4, count) spawned NCCL
+   ranks, each held against the local transport and bit-identical to the
+   others.
 
 ``--profile`` adds a torch.profiler table of one more SIMPLE iteration, of
 one (I - dG^T) product, of one residual-form iteration (a residual vjp
@@ -199,9 +222,11 @@ time step and of one reverse step (phase 11's). The last line of
 standard output is one JSON object with "ok" and the device; the line
 before it repeats the card's name and power limit, and the one before
 that lists every kernel with its launches on the full-width paths
-(phases 5, 5b, 5c, 6, 6b, 6c, 6d, 8, 8b, 9, 9b, 10, 11, 11b and 12-19,
+(phases 5, 5b, 5c, 6, 6b, 6c, 6d, 8, 8b, 9, 9b, 10, 11, 11b and 12-20,
 each counted from zero; "launches_by_path" splits them, phase 19's as
-"io_primal" and "io_adjoint"),
+"io_primal" and "io_adjoint", phase 20's f64 runs as "shard" (the halo
+route), "shard_reference" (the unsharded route) and "shard_banded" (the
+unsharded route of the 58-band relabelled box)),
 its error against the plain version, its times and its bound. The script
 prints its total wall seconds before those lines.
 """
@@ -220,6 +245,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
 FULL = 512            # O-mesh cells per direction of the full-width case
 ITERS = 300           # SIMPLE iterations of the full-width run
+PC_ITERS = 10         # SIMPLE iterations of phases 5b and 5c
 REL = {"float32": 1e-6, "float64": 1e-13}
 NU = 1e-3
 UINF = [1.0, 0.0, 0.0]
@@ -568,7 +594,7 @@ def pimple_cavity_options(n=8, **over):
 # much continuity error for 4 outer correctors: the state turns NaN by
 # step 7 (f32, on the card and on the CPU), and with a 400-iteration cap
 # the lid force flips sign from step to step
-PIMPLE_STEPS = 20
+PIMPLE_STEPS = 10
 PIMPLE_DT = 1e-4
 PIMPLE_GMRES = 20
 PIMPLE_SEG = 5
@@ -664,7 +690,7 @@ RHO_PIMPLE_DT = 1e-4
 # a 60-iteration SIMPLE state); 1e-5 held at 256x256 and 5e-6 at 512x512.
 # One period per 100 steps at such a deltaT would plunge at >6 U (it
 # diverged at 128x128 and 1e-4), so the frequency is fixed instead
-DYM_STEPS = 10
+DYM_STEPS = 5
 DYM_DT = 5e-6
 DYM_AMP = 0.01
 DYM_FREQ = 1.0
@@ -683,7 +709,7 @@ IRK_STEPS = 5
 # (with ADI line PCs and a cap of 100, 1 + 2.6e-6 by step 4, ~4x the cost)
 INTER_NX, INTER_NY = 640, 410
 INTER_DT = 1e-4
-INTER_STEPS = 20
+INTER_STEPS = 12
 INTER_PITERS = 1000
 # phase 15: tests/test_time_spectral.py:_case's box at 512x512 with N = 5
 # instances, the block Gauss-Seidel primal capped at TS_SWEEPS sweeps
@@ -1099,10 +1125,11 @@ def _real_operands(torch, fvx, solver):
 
 def _edge_shapes(torch, dev):
     """Ragged n, offsets wider than a block, none, n past the grid cap
-    (grid-stride), 32 offsets, n = 1 and 3."""
+    (grid-stride), 64 distinct nonzero offsets (the kernels' most), n = 1
+    and 3."""
     rng = torch.Generator(device="cpu").manual_seed(1)
-    wide = tuple(sorted(set(
-        int(v) for v in torch.randint(-3000, 3000, (32,), generator=rng))))
+    wide = tuple(sorted(int(v) - 3000 if v < 3000 else int(v) - 2999
+                        for v in torch.randperm(6000, generator=rng)[:64]))
     return [(1037, (-33, -1, 1, 33)), (20011, (-5000, -300, 1, 300, 5000)),
             (4097, ()), (2_100_000, (-1024, -1, 1, 1024)), (9001, wide),
             (1, (-1, 1)), (3, (5,))]
@@ -1597,10 +1624,10 @@ def phase_adjoint(torch, dk, adjsolver, s, inputs, st, tag="adjoint"):
 
 
 def phase_pc_primal(torch, dk, s, inputs, st, pc, tag, line_p=None):
-    """Phases 5b/5c: 20 SIMPLE iterations from phase 5's state with the
-    line (5b) or multigrid (5c) preconditioner on the pressure. Returns
-    the launch counts and the BiCGStab iterations per p solve."""
-    iters = 20
+    """Phases 5b/5c: PC_ITERS SIMPLE iterations from phase 5's state with
+    the line (5b) or multigrid (5c) preconditioner on the pressure.
+    Returns the launch counts and the BiCGStab iterations per p solve."""
+    iters = PC_ITERS
     lin = dict(s.option["primalLinearSolver"], pPC=pc)
     s.solve_stats.clear()
     with overridden(s.option, primalLinearSolver=lin, primalMinIters=iters,
@@ -2448,7 +2475,7 @@ SHAPE_ITERS = 60
 O_MESH_THRESHOLD = {"maxAspectRatio": 1000.0, "maxNonOrth": 85.0,
                     "maxSkewness": 20.0, "maxIncorrectlyOrientedFaces": 0}
 SHAPE_BOUND = 0.03
-SHAPE_MAXITER = 2
+SHAPE_MAXITER = 1
 # phase 18: tests/test_cht.py's heated plate and tests/test_fsi.py's
 # flexible wall with the fluid channel at CPL_NX x CPL_NY (the solid at
 # half the height), f32: CPL_OUTER block Gauss-Seidel iterations of
@@ -3095,6 +3122,482 @@ def phase_io_full(torch, dk, make_solver, omesh, box, s, inputs, st):
     return io_counts, adj_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the halo route (dafoam_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+SHARD_PARTS = 8       # RCB partitions of phase 20's meshes
+SHARD_ITERS = 50      # fixed-work SIMPLE outers of the f64 parity run
+SHARD_FP = 30         # Richardson sweeps of its fixed-point adjoint
+SHARD_P_SWEEPS = 100  # fixed-work smoother sweeps per p solve (default 500)
+SHARD_U_SWEEPS = 20   # and per U solve (default 100)
+SHARD_TIME_ITERS = 5  # f32 SIMPLE iterations timed on each route
+SHARD_RANK_ITERS = 5  # fixed-work SIMPLE outers on the NCCL ranks
+SHARD_RANK_FP = 3     # and their fixed-point sweeps
+SHARD_TIMEOUT = 300   # seconds for the spawned NCCL ranks
+SHARD_BANDED = 48     # box whose SHARD_PARTS-part relabelling has 58 bands
+SHARD_WALLS = {"zmin": "empty", "zmax": "empty", "xmin": "wall",
+               "xmax": "wall", "ymin": "wall", "ymax": "wall"}
+
+
+def shard_options(**over):
+    """tests/test_sharding.py:cavity_case's options, canonical layout."""
+    zero = [0.0, 0.0, 0.0]
+    opts = {
+        "solverName": "DASimpleFoam", "turbulenceModel": "None",
+        "transportProperties": {"nu": 0.01},
+        "boundaryConditions": {
+            "U": {"ymax": {"type": "fixedValue", "value": [1.0, 0.0, 0.0]},
+                  "ymin": {"type": "fixedValue", "value": zero},
+                  "xmin": {"type": "fixedValue", "value": zero},
+                  "xmax": {"type": "fixedValue", "value": zero}},
+            "p": {k: {"type": "zeroGradient"}
+                  for k in ("xmin", "xmax", "ymin", "ymax")}},
+        "initialFields": {"U": zero, "p": 0.0},
+        "primalMinResTol": 1e-10, "primalMaxIters": 400,
+        "relaxationFactors": {"fields": {"p": 0.3}, "equations": {"U": 0.7}},
+        "function": {"lidF": {"type": "force", "patches": ["ymax"],
+                              "directionMode": "fixedDirection",
+                              "direction": [1.0, 0.0, 0.0], "scale": 1.0}},
+        "normalizeStates": {"U": 1.0, "p": 0.5, "phi": 1.0},
+        "meshFaceLayout": "canonical",
+    }
+    opts.update(over)
+    return opts
+
+
+def shard_fixed_options(iters=SHARD_ITERS, sweeps=SHARD_FP):
+    """tests/test_sharding.py:test_halo_parity_100k_cells's fixed work:
+    ``iters`` SIMPLE outers, ``sweeps`` Richardson sweeps of the
+    fixed-point adjoint (fpRelTol 1e-30, fpInnerScale 0.5); run them under
+    fvsolve.fixed_inner(1.0). The smoother budgets are SHARD_P_SWEEPS and
+    SHARD_U_SWEEPS, not the defaults' 500 and 100, to keep the phase
+    inside its time."""
+    return shard_options(
+        primalMinResTol=0.0, primalMaxIters=iters,
+        primalLinearSolver={"pMaxIters": SHARD_P_SWEEPS,
+                            "uMaxIters": SHARD_U_SWEEPS},
+        adjEqnSolMethod="fixedPoint",
+        adjEqnOption={"fpAcceleration": "richardson", "fpRelTol": 1e-30,
+                      "fpMaxIters": sweeps, "fpInnerScale": 0.5})
+
+
+def shard_box(box, parts):
+    """Phase 20's FULL x FULL cavity box, reordered into ``parts`` RCB
+    partitions: (points, topology, reorder seconds)."""
+    from dafoam_tpu_torch.parallel import reorder_for_partitions
+    pts, topo = box(FULL, FULL, 1, (0.1, 0.1, 0.01), kinds=SHARD_WALLS)
+    t0 = time.perf_counter()
+    topo2, _ = reorder_for_partitions(topo, pts, parts)
+    return pts, topo2, time.perf_counter() - t0
+
+
+def fixed_work(torch, dk, make_solver, pts, topo, dtype, device=None,
+               group=None, parts=None, iters=SHARD_ITERS, sweeps=SHARD_FP):
+    """The fixed-work primal, fixed-point adjoint and lidF totals on one
+    route: unsharded (parts None) or the halo route (local transport, or
+    this rank's of ``group``). The solver gets a topology object of its
+    own, so no other solver shares its route."""
+    import dataclasses
+    from dafoam_tpu_torch.linalg import fvsolve
+    from dafoam_tpu_torch.parallel import halo, shard_solver
+    s = make_solver(shard_fixed_options(iters, sweeps),
+                    dataclasses.replace(topo), pts, device=device or DEVICE,
+                    dtype=dtype)
+    hm = None if parts is None else shard_solver(s, parts, group=group)
+    try:
+        x = s.make_inputs()
+        dk.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with fvsolve.fixed_inner(1.0):
+            st, _ = s.run_primal(s.init_state(), x)
+        J = float(s.run_function("lidF", st, x))
+        psi, _ = s.solve_adjoint(st, x, "lidF")
+        tot = s.total_derivative(st, x, "lidF", psi)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        if hm is not None:
+            halo.deactivate(s.topo)
+    return {"U": st["U"].detach(), "J": J, "psi": psi["U"].detach(),
+            "nu": tot["params"]["nu"].detach(),
+            "points": tot["points"].detach(), "s": dt,
+            "counts": dict(dk.COUNTS), "products": hm.calls if hm else 0}
+
+
+def fixed_work_errors(got, want):
+    """Phase 20's parity bars (tests/test_sharding.py:
+    test_halo_parity_100k_cells): {quantity: (error, bar)}."""
+    def absmax(t):
+        return float(t.abs().max())
+    dj = abs(got["J"] - want["J"])
+    scale = max(1.0, absmax(want["points"]))
+    return {"U": (absmax(got["U"] - want["U"]), 1e-11),
+            "J": (dj, max(1e-12, 1e-10 * abs(want["J"]))),
+            "dJdnu": (absmax(got["nu"] - want["nu"]),
+                      1e-14 + 1e-10 * absmax(want["nu"])),
+            "dJdpoints": (absmax(got["points"] - want["points"]),
+                          1e-10 * scale + 1e-10 * absmax(want["points"]))}
+
+
+def shard_banded(torch, dk, make_solver, box, stats):
+    """A relabelled mesh inside the DIA kernels' band range: the
+    SHARD_BANDED box in SHARD_PARTS RCB parts has 58 bands (33-64, which
+    the kernels take since topo.dia() gives a band layout up to 64). Every
+    kernel against its plain version at its offsets (f32 and f64, C = 3
+    with a shared diagonal for the multi forms); then the short fixed-work
+    run on the unsharded route, whose products are the DIA kernels at
+    those offsets, against the halo route (face-based). Returns the
+    unsharded run's launch counts."""
+    from dafoam_tpu_torch.parallel import reorder_for_partitions
+    pts, topo = box(SHARD_BANDED, SHARD_BANDED, 1, (0.1, 0.1, 0.01),
+                    kinds=SHARD_WALLS)
+    topo, _ = reorder_for_partitions(topo, pts, SHARD_PARTS)
+    dia = topo.dia()
+    check(dia is not None and 32 < len(dia[0]) <= dk.MAX_OFFSETS,
+          f"the relabelled {SHARD_BANDED}x{SHARD_BANDED} box is not banded "
+          "within 33-64 offsets")
+    offsets = tuple(int(o) for o in dia[0])
+    n = topo.n_cells
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    errs = {}
+    for dtype in (torch.float32, torch.float64):
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=DEVICE,
+                               dtype=dtype)
+        d, c = rnd(n), rnd(len(offsets), n)
+        for nm in KERNELS:
+            multi = nm.endswith(("multi", "multi_t"))
+            x, ct = (rnd(3, n), rnd(3, n)) if multi else (rnd(n), rnd(n))
+            err, scale = compare(torch, dk, nm, d, c, offsets, x, ct, stats,
+                                 f"{len(offsets)}-band relabelled box")
+            errs[nm] = max(errs.get(nm, 0.0), err / max(scale, 1e-300))
+    kw = dict(iters=3, sweeps=2)
+    want = fixed_work(torch, dk, make_solver, pts, topo, torch.float64, **kw)
+    got = fixed_work(torch, dk, make_solver, pts, topo, torch.float64,
+                     parts=SHARD_PARTS, **kw)
+    fw = fixed_work_errors(got, want)
+    say(f"[shard] {SHARD_BANDED}x{SHARD_BANDED} box in {SHARD_PARTS} RCB "
+        f"parts ({n} cells, {len(offsets)} bands): each kernel against its "
+        "plain version, largest relative error over f32 and f64: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + "; 3 fixed-work outers + 2 sweeps + totals in f64, unsharded "
+        f"(DIA kernels, launches {want['counts']}) against the halo route: "
+        + ", ".join(f"{k} {e:.3e}" for k, (e, _) in fw.items()))
+    for k, (e, bar) in fw.items():
+        check(e <= bar, f"{len(offsets)}-band box fixed-work {k}: {e} > "
+              f"{bar}")
+    cnt = want["counts"]
+    check(all(cnt[k] > 0 for k in KERNELS)
+          and not any(cnt[k + "_plain"] for k in KERNELS),
+          f"the {len(offsets)}-band run did not launch every kernel: {cnt}")
+    return cnt
+
+
+def halo_vs_plain(torch, hm, topo, dev, seed, dtype):
+    """(y, vjp) relative errors of one HaloMatvec product against
+    autograd of the unsharded face-based product on the same inputs."""
+    import numpy as np
+    from dafoam_tpu_torch.ops import fvmatrix as fvx
+    rng = np.random.default_rng(seed)
+    nc, ni = topo.n_cells, topo.n_internal
+    d, lo, up, x, ct = (torch.as_tensor(a, dtype=dtype, device=dev) for a in
+                        (rng.normal(size=nc) + 5.0, rng.normal(size=ni),
+                         rng.normal(size=ni), rng.normal(size=nc),
+                         rng.normal(size=nc)))
+    prim = [t.clone().requires_grad_(True) for t in (d, lo, up, x)]
+    y = hm(*prim)
+    g = torch.autograd.grad(y, prim, ct)
+    ref = [t.clone().requires_grad_(True) for t in (d, lo, up, x)]
+    yr = fvx.matvec(fvx.FvMatrix(ref[0], ref[1], ref[2], d), ref[3], topo)
+    gr = torch.autograd.grad(yr, ref, ct)
+    y, yr = y.detach(), yr.detach()
+    rel = lambda a, b: float((a - b).abs().max()) / max(  # noqa: E731
+        float(b.abs().max()), 1e-300)
+    return rel(y, yr), max(rel(a, b) for a, b in zip(g, gr))
+
+
+def _shard_rank(rank, world, rdzv, out, setting):
+    """One NCCL rank of phase 20's multi-card branch (a spawned process on
+    card ``rank``): HaloMatvec(group) against the local transport, then
+    the short fixed-work run on the distributed route against the local
+    route, the ranks' results bit-identical. ``setting`` carries the
+    parent's DEVICE and FULL. Writes out/rank<r>.json."""
+    global DEVICE, FULL
+    DEVICE, FULL = setting
+    import torch
+    sys.path.insert(0, HERE)
+    from dafoam_tpu_torch.mesh import box_hex_mesh
+    from dafoam_tpu_torch.ops import dia_kernels as dk
+    from dafoam_tpu_torch.parallel.halo import HaloMatvec, assert_replicated
+    from dafoam_tpu_torch.parallel.shard import file_group
+    from dafoam_tpu_torch.solvers import make_solver
+    if DEVICE == "cpu":
+        dev = torch.device("cpu")
+    else:
+        torch.cuda.set_device(rank)
+        dev = torch.device("cuda", rank)
+    res = {"rank": rank}
+    # the local references run in the group's deterministic mode too
+    with file_group(rdzv, rank, world, dev, SHARD_TIMEOUT) as group:
+        pts, topo, _ = shard_box(box_hex_mesh, world)
+        f64 = torch.float64
+        hm = HaloMatvec(topo, world, device=dev, group=group)
+        res["y"], res["vjp"] = halo_vs_plain(torch, hm, topo, dev, 11, f64)
+        loc = HaloMatvec(topo, world, device=dev)
+        ry, rg = halo_vs_plain(torch, loc, topo, dev, 11, f64)
+        res["local_y"], res["local_vjp"] = ry, rg
+        kw = dict(iters=SHARD_RANK_ITERS, sweeps=SHARD_RANK_FP, parts=world,
+                  device=dev)
+        want = fixed_work(torch, dk, make_solver, pts, topo, f64, **kw)
+        got = fixed_work(torch, dk, make_solver, pts, topo, f64,
+                         group=group, **kw)
+        assert_replicated([got[k] for k in ("U", "psi", "nu", "points")],
+                          group, "fixed-work result")
+        res["fixed_work"] = {k: list(v) for k, v in
+                             fixed_work_errors(got, want).items()}
+        res["products"], res["s"] = got["products"], got["s"]
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def shard_nccl(torch, make_solver, dk, pts, topo):
+    """Phase 20's distributed transport on the card: a 1-rank NCCL group
+    in this process (HaloMatvec(group) with P = 1 against the unsharded
+    product, and a short fixed-work run through shard_solver(group)
+    against the local route, both inside the group's context, so both
+    under the deterministic algorithms that file_group turns on for an
+    NCCL group); on two or more cards, min(4, count) spawned NCCL
+    ranks."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    from dafoam_tpu_torch.parallel.halo import HaloMatvec
+    from dafoam_tpu_torch.parallel.shard import file_group
+
+    tmp = tempfile.mkdtemp(prefix="dafoam_shard_")
+    try:
+        with file_group(os.path.join(tmp, "rdzv1"), 0, 1, DEVICE,
+                        SHARD_TIMEOUT) as group:
+            hm = HaloMatvec(topo, 1, device=DEVICE, group=group)
+            ey, eg = halo_vs_plain(torch, hm, topo, DEVICE, 13,
+                                   torch.float64)
+            kw = dict(iters=3, sweeps=2, parts=1)
+            want = fixed_work(torch, dk, make_solver, pts, topo,
+                              torch.float64, **kw)
+            got = fixed_work(torch, dk, make_solver, pts, topo,
+                             torch.float64, group=group, **kw)
+        errs = fixed_work_errors(got, want)
+        say(f"[shard] NCCL, 1 rank on this card: HaloMatvec(group) with "
+            f"P = 1 against the unsharded product, y rel {ey:.3e}, vjp rel "
+            f"{eg:.3e}; 3 fixed-work SIMPLE outers + 2 sweeps + totals "
+            f"through shard_solver(group), {got['products']} products, "
+            "against the local route (both with deterministic algorithms): "
+            + ", ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
+            + ". P = 1 has no cut face: this moves no halo traffic, it "
+            "only shows the NCCL transport wired together on CUDA "
+            "(all-gather, all-reduce, autograd)")
+        check(ey <= REL["float64"] and eg <= 1e-12,
+              f"1-rank NCCL halo matvec: y {ey}, vjp {eg}")
+        for k, (e, bar) in errs.items():
+            check(e <= bar, f"1-rank NCCL fixed-work {k}: {e} > {bar}")
+
+        n = torch.cuda.device_count()
+        if n < 2:
+            say("[shard] NCCL ranks across cards: not run (one card); the "
+                "halo exchange between NCCL ranks runs only in a call "
+                "with two or more cards")
+            return
+        world = min(4, n)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_shard_rank,
+                             args=(r, world, os.path.join(tmp, "rdzv"), tmp,
+                                   (DEVICE, FULL)))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + SHARD_TIMEOUT
+        for p in procs:
+            p.join(max(1.0, deadline - time.time()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * world, f"NCCL ranks exited {codes}")
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                res = json.load(fh)
+            say(f"[shard] NCCL rank {r} of {world} (card {r}): "
+                f"HaloMatvec(group) y rel {res['y']:.3e}, vjp rel "
+                f"{res['vjp']:.3e} (local transport {res['local_y']:.3e}, "
+                f"{res['local_vjp']:.3e}); {SHARD_RANK_ITERS} fixed-work "
+                f"outers + {SHARD_RANK_FP} sweeps + totals in "
+                f"{res['s']:.2f} s, {res['products']} products, against "
+                "the local route: " + ", ".join(
+                    f"{k} {e:.3e}" for k, (e, _) in
+                    res["fixed_work"].items())
+                + "; results bit-identical across ranks")
+            check(max(res["y"], res["local_y"]) <= REL["float64"]
+                  and max(res["vjp"], res["local_vjp"]) <= 1e-12,
+                  f"NCCL rank {r}: {res}")
+            for k, (e, bar) in res["fixed_work"].items():
+                check(e <= bar, f"NCCL rank {r} fixed-work {k}: {e} > {bar}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def shard_timing(torch, dk, adjsolver, make_solver, pts, topo):
+    """Phase 20's f32 times on both routes: ms per product (the halo
+    product against the unsharded one on the same operands), per SIMPLE
+    iteration and per fixed-point adjoint product, and, last, the device
+    kernels of one SIMPLE iteration (profiler)."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from dafoam_tpu_torch.ops import fvmatrix as fvx
+    from dafoam_tpu_torch.parallel import halo, shard_solver
+    f32 = torch.float32
+    runs = {}
+    for route in ("unsharded", "halo"):
+        opts = shard_options(primalMinIters=SHARD_TIME_ITERS,
+                             primalMaxIters=SHARD_TIME_ITERS,
+                             primalMinResTol=0.0,
+                             adjEqnSolMethod="fixedPoint")
+        s = make_solver(opts, dataclasses.replace(topo), pts, device=DEVICE,
+                        dtype=f32)
+        hm = shard_solver(s, SHARD_PARTS) if route == "halo" else None
+        x = s.make_inputs()
+        st0 = s.init_state()
+        with overridden(s.option, primalMinIters=1, primalMaxIters=1):
+            s.run_primal(st0, x)                             # warm
+        s.solve_stats.clear()
+        dk.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, info = s.run_primal(st0, x)
+        torch.cuda.synchronize()
+        it_ms = (time.perf_counter() - t0) / SHARD_TIME_ITERS * 1e3
+        counts = dict(dk.COUNTS)
+        kry = {k: v[1] / SHARD_TIME_ITERS for k, v in s.solve_stats.items()}
+        nc, ni = s.topo.n_cells, s.topo.n_internal
+        gen = torch.Generator(device=DEVICE).manual_seed(17)
+        d, lo, up, xx = (torch.rand(k, generator=gen, device=DEVICE,
+                                    dtype=f32) + c
+                         for k, c in ((nc, 4.0), (ni, -1.0), (ni, -1.0),
+                                      (nc, 0.0)))
+        mv = fvx.matvec_fn(fvx.FvMatrix(d, lo, up, xx), s.topo)
+        mv_ms = cuda_ms(torch, lambda: mv(xx))
+        state = {k: v.detach() for k, v in st.items()}
+        step = s._fp_step_fn()
+        _, f_vjp = adjsolver.vjp(lambda w: step(w, x)[0], state)
+        f_vjp(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            f_vjp(state)
+        torch.cuda.synchronize()
+        adj_ms = (time.perf_counter() - t0) / 2 * 1e3
+        runs[route] = {"s": s, "x": x, "st": st, "hm": hm, "iter_ms": it_ms,
+                       "krylov": kry, "mv_ms": mv_ms, "adj_ms": adj_ms,
+                       "counts": counts}
+    for route, r in runs.items():
+        s = r["s"]
+        with overridden(s.option, primalMinIters=1, primalMaxIters=1):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                s.run_primal(r["st"], r["x"])
+                torch.cuda.synchronize()
+        r["kernels"] = len(_kernel_events(prof))
+        if r["hm"] is not None:
+            halo.deactivate(s.topo)
+    return runs
+
+
+def phase_shard_full(torch, dk, adjsolver, make_solver, box, omesh_pts,
+                     omesh_topo, stats):
+    """Phase 20: the halo route at FULL x FULL (262,144 cells) in
+    SHARD_PARTS RCB partitions; ``omesh_pts``, ``omesh_topo`` are phase
+    5's O-mesh (canonical topology). Returns the launch counts of the f64
+    fixed-work run on the halo route ("shard"), on the unsharded route
+    ("shard_reference") and on the unsharded route of the 58-band
+    relabelled box ("shard_banded")."""
+    import numpy as np
+    from dafoam_tpu_torch.parallel.halo import (HaloMatvec, build_halo_plan,
+                                                exchanged_values)
+    from dafoam_tpu_torch.parallel.partition import (cut_statistics,
+                                                     reorder_for_partitions)
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    pts, topo, t_reorder = shard_box(box, SHARD_PARTS)
+    t0 = time.perf_counter()
+    plan = build_halo_plan(topo, SHARD_PARTS)
+    t_plan = time.perf_counter() - t0
+    cut = cut_statistics(topo, np.arange(topo.n_cells) // plan.ncl)
+    own = topo.owner[:topo.n_internal].astype(np.int64)
+    bands = np.unique(np.concatenate([topo.neighbour - own,
+                                      own - topo.neighbour])).size
+    say(f"[shard] {FULL}x{FULL} cavity box ({topo.n_cells} cells) in "
+        f"{SHARD_PARTS} RCB parts: reorder {t_reorder:.2f} s, halo plan "
+        f"{t_plan:.3f} s; {bands} bands after the relabelling (the DIA "
+        f"kernels take {dk.MAX_OFFSETS}); cut faces {plan.cut_faces} "
+        f"({cut['cut_fraction']:.4f} of {topo.n_internal}), distances "
+        f"{plan.dists}, per product {exchanged_values(plan)} values "
+        f"exchanged ({exchanged_values(plan) * 4} B f32 scalar, "
+        f"{exchanged_values(plan, 3) * 4} B f32 (nc, 3)), entries per "
+        f"partition {plan.row.shape[1]}")
+    check(cut["n_cut_faces"] == plan.cut_faces and plan.cut_faces > 0,
+          "cut statistics disagree with the plan")
+
+    want = fixed_work(torch, dk, make_solver, pts, topo, f64)
+    got = fixed_work(torch, dk, make_solver, pts, topo, f64,
+                     parts=SHARD_PARTS)
+    errs = fixed_work_errors(got, want)
+    say(f"[shard] f64 fixed work ({SHARD_ITERS} SIMPLE outers under "
+        f"fixed_inner(1.0), {SHARD_FP} Richardson sweeps, lidF totals): "
+        f"unsharded {want['s']:.2f} s, halo route {got['s']:.2f} s "
+        f"({got['products']} halo products); J {got['J']!r} against "
+        f"{want['J']!r}; " + ", ".join(f"{k} err {e:.3e} (bar {b:.1e})"
+                                       for k, (e, b) in errs.items()))
+    say(f"[shard] launch counts: halo route {got['counts']}; unsharded "
+        f"{want['counts']}")
+    for k, (e, bar) in errs.items():
+        check(e <= bar, f"halo route f64 {k}: err {e} > {bar}")
+    check(got["products"] > 0 and not any(got["counts"].values()),
+          "the halo route ran a DIA product")
+
+    t0 = time.perf_counter()
+    to2, _ = reorder_for_partitions(omesh_topo, omesh_pts, SHARD_PARTS)
+    t1 = time.perf_counter()
+    hm = HaloMatvec(to2, SHARD_PARTS, device=DEVICE)
+    t2 = time.perf_counter()
+    ey, eg = halo_vs_plain(torch, hm, to2, DEVICE, 7, f64)
+    say(f"[shard] {FULL}x{FULL} NACA0012 O-mesh in {SHARD_PARTS} parts: "
+        f"reorder {t1 - t0:.2f} s, plan + tables {t2 - t1:.3f} s, cut faces "
+        f"{hm.plan.cut_faces}, distances {hm.plan.dists}; one f64 halo "
+        f"product against the unsharded one: y rel {ey:.3e}, vjp rel "
+        f"{eg:.3e}")
+    check(ey <= REL["float64"] and eg <= 1e-12,
+          f"O-mesh halo product: y {ey}, vjp {eg}")
+
+    runs = shard_timing(torch, dk, adjsolver, make_solver, pts, topo)
+    for route, r in runs.items():
+        say(f"[shard] f32 {route}: {r['mv_ms'] * 1e3:.1f} us per LDU product"
+            f" (CUDA events), {r['iter_ms']:.2f} ms per SIMPLE iteration "
+            f"(mean of {SHARD_TIME_ITERS}; Krylov iterations per SIMPLE "
+            "iteration " + ", ".join(f"{k} {v:.1f}"
+                                     for k, v in r["krylov"].items())
+            + f"), {r['adj_ms']:.2f} ms per fixed-point adjoint product "
+            f"(mean of 2), {r['kernels']} device kernels per SIMPLE "
+            f"iteration (profiler); launch counts {r['counts']}")
+    check(not any(runs["halo"]["counts"].values()),
+          "the f32 halo route ran a DIA product")
+
+    banded = shard_banded(torch, dk, make_solver, box, stats)
+    shard_nccl(torch, make_solver, dk, pts, topo)
+    say(f"[shard] phase 20 {time.perf_counter() - t_phase:.1f} s")
+    return got["counts"], want["counts"], banded
+
+
 def profile_unsteady(torch, hisa_run, pimple_run):
     """--profile: one AUSMPlusUp PTC iteration of phase 10 (its initial
     residual included), one PIMPLE time step and one reverse step of
@@ -3186,6 +3689,7 @@ def main():
     from dafoam_tpu_torch.adjoint import solver as adjsolver
     from dafoam_tpu_torch.mesh import box_hex_mesh
     from dafoam_tpu_torch.mesh.airfoil import omesh_naca0012
+    from dafoam_tpu_torch.mesh.topology import from_dia_dense
     from dafoam_tpu_torch.ops import dia_kernels as dk
     from dafoam_tpu_torch.ops import fvmatrix as fvx
     from dafoam_tpu_torch.solvers import make_solver
@@ -3263,6 +3767,9 @@ def main():
     io_counts, io_adj_counts = phase_io_full(torch, dk, make_solver,
                                              omesh_naca0012, box_hex_mesh,
                                              s, inputs, st)
+    shard_counts, shard_ref_counts, shard_banded_counts = phase_shard_full(
+        torch, dk, adjsolver, make_solver, box_hex_mesh,
+        s.points.double().cpu().numpy(), from_dia_dense(s.topo), stats)
     phase_kernel_times(torch, dk, real, stats)
 
     if args.profile:
@@ -3307,7 +3814,9 @@ def main():
              "shape_opt": shape_counts, "mphys": mphys_counts,
              **dict(zip(("cht_primal", "cht_adjoint", "fsi_primal",
                          "fsi_adjoint"), cpl_counts)),
-             "io_primal": io_counts, "io_adjoint": io_adj_counts}
+             "io_primal": io_counts, "io_adjoint": io_adj_counts,
+             "shard": shard_counts, "shard_reference": shard_ref_counts,
+             "shard_banded": shard_banded_counts}
     rows = []
     for name, meta in KERNELS.items():
         st_k = stats[name]

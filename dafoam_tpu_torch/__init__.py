@@ -14,8 +14,11 @@ the MDO and coupling layer (``mdo/``, ``coupling/``), and IO and
 utilities: the OpenFOAM polyMesh reader and writer
 (``mesh.polymesh``), checkpoints, timing, pre/post-processing, the
 Jacobian dump (``utils/``) and the command-line tools
-(``python -m dafoam_tpu_torch.scripts.cli``). Not ported: multi-device
-partitioning (``dafoam_tpu.parallel``); see ROADMAP.md.
+(``python -m dafoam_tpu_torch.scripts.cli``), and multi-device
+partitioning (``parallel/``: RCB, the halo-exchange LDU matvec over
+partitions in one process or over ``torch.distributed`` ranks, and
+``shard_solver``). Not ported: dafoam_tpu's GSPMD placement
+(``dafoam_tpu.parallel.shard.shard_case``); see ``parallel/__init__.py``.
 
 ``make_solver``, ``box_hex_mesh`` and ``read_polymesh`` are importable
 from the package itself; they load their modules on first access.

@@ -27,7 +27,8 @@ import torch
 
 from dafoam_tpu_torch.linalg.krylov import bicgstab, cg
 from dafoam_tpu_torch.linalg.lines import cell_major_matvec, line_solver
-from dafoam_tpu_torch.ops.fvmatrix import FvMatrix, matvec_fn, matvec_t_fn
+from dafoam_tpu_torch.ops.fvmatrix import (FvMatrix, banded, matvec_fn,
+                                           matvec_t_fn)
 from dafoam_tpu_torch.utils.precision import guard_tiny
 
 
@@ -47,7 +48,7 @@ def _sweeper(m: FvMatrix, topo, make, symmetric, iters):
     solver = cg if symmetric else bicgstab
 
     def prepare(r):
-        cm = r.ndim == 2 and topo.dia() is not None
+        cm = r.ndim == 2 and banded(topo)
         if cm:
             d = m.diag[None, :] if m.diag.ndim == 1 else \
                 m.diag.t().contiguous()

@@ -40,8 +40,9 @@
 // Design: one thread per row in a grid-stride loop; coalesced reads of d,
 // c and the output; shifted reads through the read-only path with the
 // ragged edges masked to zero. The offsets are passed by value in a small
-// struct (at most 32), so a call makes no device copy. Every multiply and
-// add is explicitly rounded (no FMA contraction), the bands are summed in
+// struct (at most 64, the band count up to which topo.dia() gives a band
+// layout), so a call makes no device copy. Every multiply and add is
+// explicitly rounded (no FMA contraction), the bands are summed in
 // the order the plain torch versions sum them and component sums run
 // q = 0..C-1, so each kernel reproduces its plain version in
 // dafoam_tpu_torch.ops.dia_kernels bit for bit.
@@ -51,7 +52,7 @@
 
 #include <cuda_runtime.h>
 
-#define DIA_MAX_OFFSETS 32
+#define DIA_MAX_OFFSETS 64
 #define DIA_THREADS 256
 #define DIA_MAX_BLOCKS 8192
 
@@ -77,11 +78,10 @@ __global__ void dia_matvec_kernel(const T* __restrict__ d,
     T acc = rmul(d[i], x[i]);
 #pragma unroll
     for (int k = 0; k < DIA_MAX_OFFSETS; ++k) {
-      if (k < offs.k) {  // static indices into the parameter struct
-        const long long j = i + offs.o[k];
-        const T xv = (j >= 0 && j < n) ? __ldg(x + j) : T(0);
-        acc = radd(acc, rmul(c[(long long)k * n + i], xv));
-      }
+      if (k >= offs.k) break;  // static indices into the parameter struct
+      const long long j = i + offs.o[k];
+      const T xv = (j >= 0 && j < n) ? __ldg(x + j) : T(0);
+      acc = radd(acc, rmul(c[(long long)k * n + i], xv));
     }
     y[i] = acc;
   }
@@ -102,15 +102,14 @@ __global__ void dia_matvec_multi_kernel(const T* __restrict__ d,
     for (int q = 0; q < C; ++q) acc[q] = rmul(d[q * d_cstride + i], x[q * n + i]);
 #pragma unroll
     for (int k = 0; k < DIA_MAX_OFFSETS; ++k) {
-      if (k < offs.k) {
-        const T ck = c[(long long)k * n + i];  // read once for all C
-        const long long j = i + offs.o[k];
-        const bool in = (j >= 0 && j < n);
+      if (k >= offs.k) break;
+      const T ck = c[(long long)k * n + i];  // read once for all C
+      const long long j = i + offs.o[k];
+      const bool in = (j >= 0 && j < n);
 #pragma unroll
-        for (int q = 0; q < C; ++q) {
-          const T xv = in ? __ldg(x + q * n + j) : T(0);
-          acc[q] = radd(acc[q], rmul(ck, xv));
-        }
+      for (int q = 0; q < C; ++q) {
+        const T xv = in ? __ldg(x + q * n + j) : T(0);
+        acc[q] = radd(acc[q], rmul(ck, xv));
       }
     }
 #pragma unroll
@@ -134,13 +133,12 @@ __global__ void dia_matvec_t_kernel(const T* __restrict__ d,
     T acc = rmul(d[i], ct[i]);
 #pragma unroll
     for (int k = 0; k < DIA_MAX_OFFSETS; ++k) {
-      if (k < offs.k) {
-        const long long j = i - offs.o[k];
-        const bool in = (j >= 0 && j < n);
-        const T cv = in ? __ldg(c + (long long)k * n + j) : T(0);
-        const T tv = in ? __ldg(ct + j) : T(0);
-        acc = radd(acc, rmul(cv, tv));
-      }
+      if (k >= offs.k) break;
+      const long long j = i - offs.o[k];
+      const bool in = (j >= 0 && j < n);
+      const T cv = in ? __ldg(c + (long long)k * n + j) : T(0);
+      const T tv = in ? __ldg(ct + j) : T(0);
+      acc = radd(acc, rmul(cv, tv));
     }
     xbar[i] = acc;
   }
@@ -161,15 +159,14 @@ __global__ void dia_matvec_multi_t_kernel(const T* __restrict__ d,
     for (int q = 0; q < C; ++q) acc[q] = rmul(d[q * d_cstride + i], ct[q * n + i]);
 #pragma unroll
     for (int k = 0; k < DIA_MAX_OFFSETS; ++k) {
-      if (k < offs.k) {
-        const long long j = i - offs.o[k];
-        const bool in = (j >= 0 && j < n);
-        const T cv = in ? __ldg(c + (long long)k * n + j) : T(0);  // once for all C
+      if (k >= offs.k) break;
+      const long long j = i - offs.o[k];
+      const bool in = (j >= 0 && j < n);
+      const T cv = in ? __ldg(c + (long long)k * n + j) : T(0);  // once for all C
 #pragma unroll
-        for (int q = 0; q < C; ++q) {
-          const T tv = in ? __ldg(ct + q * n + j) : T(0);
-          acc[q] = radd(acc[q], rmul(cv, tv));
-        }
+      for (int q = 0; q < C; ++q) {
+        const T tv = in ? __ldg(ct + q * n + j) : T(0);
+        acc[q] = radd(acc[q], rmul(cv, tv));
       }
     }
 #pragma unroll
@@ -194,11 +191,10 @@ __global__ void dia_cotangent_kernel(const T* __restrict__ ct,
     dbar[i] = rmul(t, x[i]);
 #pragma unroll
     for (int k = 0; k < DIA_MAX_OFFSETS; ++k) {
-      if (k < offs.k) {
-        const long long j = i + offs.o[k];
-        const T xv = (j >= 0 && j < n) ? __ldg(x + j) : T(0);
-        cbar[(long long)k * n + i] = rmul(t, xv);
-      }
+      if (k >= offs.k) break;
+      const long long j = i + offs.o[k];
+      const T xv = (j >= 0 && j < n) ? __ldg(x + j) : T(0);
+      cbar[(long long)k * n + i] = rmul(t, xv);
     }
   }
 }
@@ -227,15 +223,14 @@ __global__ void dia_cotangent_multi_kernel(const T* __restrict__ ct,
     }
 #pragma unroll
     for (int k = 0; k < DIA_MAX_OFFSETS; ++k) {
-      if (k < offs.k) {
-        const long long j = i + offs.o[k];
-        const bool in = (j >= 0 && j < n);
-        T acc = rmul(t[0], in ? __ldg(x + j) : T(0));
+      if (k >= offs.k) break;
+      const long long j = i + offs.o[k];
+      const bool in = (j >= 0 && j < n);
+      T acc = rmul(t[0], in ? __ldg(x + j) : T(0));
 #pragma unroll
-        for (int q = 1; q < C; ++q)
-          acc = radd(acc, rmul(t[q], in ? __ldg(x + q * n + j) : T(0)));
-        cbar[(long long)k * n + i] = acc;
-      }
+      for (int q = 1; q < C; ++q)
+        acc = radd(acc, rmul(t[q], in ? __ldg(x + q * n + j) : T(0)));
+      cbar[(long long)k * n + i] = acc;
     }
   }
 }

@@ -33,8 +33,9 @@ from dafoam_tpu_torch.linalg.lines import (apply_line_solve,
                                            build_line_solves,
                                            cell_major_matvec,
                                            line_directions, line_solver)
-from dafoam_tpu_torch.ops.fvmatrix import (FvMatrix, matvec, matvec_fn,
-                                           matvec_t_fn)
+from dafoam_tpu_torch.ops.fvmatrix import (FvMatrix, banded, matvec,
+                                           matvec_fn, matvec_t_fn)
+from dafoam_tpu_torch.parallel.halo import active as active_halo
 from dafoam_tpu_torch.utils.precision import guard_tiny
 
 
@@ -44,8 +45,8 @@ def _component_major_ok(m: FvMatrix, psi0, topo) -> bool:
     Unlike the JAX rule, a per-component diagonal (nc, C) qualifies too:
     K2 takes it as a (C, nc) diagonal, so the momentum equation (whose
     boundary folding leaves a (nc, 3) diagonal) still reads its bands
-    once for all components."""
-    return psi0.ndim == 2 and topo.dia() is not None
+    once for all components. The halo route keeps them cell-major."""
+    return psi0.ndim == 2 and banded(topo)
 
 
 # Scoped switch: inside fixed_inner(), every solve — in the solver's own
@@ -179,6 +180,10 @@ def solve(m: FvMatrix, psi0, topo, symmetric=False, rel_tol=1e-7,
         return x, SolveInfo(n, 0.0, 0.0, True)
     if pc not in ("jacobi", "line", "mg"):
         raise ValueError(f"unknown pc {pc!r}")
+    if pc != "jacobi" and active_halo(topo) is not None:
+        raise ValueError(f"pPC {pc!r} needs the dense-DIA or grid layout; "
+                         "the halo route runs the canonical one (use "
+                         "jacobi)")
     b = m.source if rhs is None else m.source + rhs
     cm = _component_major_ok(m, psi0, topo)
     if cm:

@@ -4,7 +4,7 @@ autograd Functions that tie them together, with plain torch versions.
 K1 ``dia_matvec``:        y[i]   = d[i] x[i] + sum_k c[k,i] x[i + o_k]
 K2 ``dia_matvec_multi``:  y[q,i] = d[q,i] x[q,i] + sum_k c[k,i] x[q, i + o_k]
 
-with x zero outside [0, n) and static offsets o_k (at most 32). K2 takes
+with x zero outside [0, n) and static offsets o_k (at most 64). K2 takes
 component-major operands x (C, n) whose components share the band
 coefficients; its diagonal is shared (n,) or per component (C, n).
 
@@ -52,7 +52,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-MAX_OFFSETS = 32
+MAX_OFFSETS = 64
 MAX_COMPONENTS = 4
 
 _PKG = Path(__file__).resolve().parent.parent

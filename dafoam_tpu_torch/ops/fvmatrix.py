@@ -17,7 +17,10 @@ relax(), flux()) carries over:
 
 Inside Krylov loops the matrix is applied through ``matvec_fn``, which
 gathers the band coefficients once and then runs the banded (DIA) matvec
-kernels of ``ops/dia_kernels.py``.
+kernels of ``ops/dia_kernels.py``. When the topology was opted into the
+halo route (``parallel.shard.shard_solver``), ``matvec``, ``matvec_fn``
+and ``matvec_t_fn`` send every product through its ``HaloMatvec``
+instead.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from dafoam_tpu_torch.ops import dia_kernels
 from dafoam_tpu_torch.ops.core import (_shift_bwd, abs_ad, cell_to_face_nei,
                                        cell_to_face_own, face_sum_pair,
                                        index_tensor)
+from dafoam_tpu_torch.parallel.halo import active as active_halo
 
 
 class FvMatrix(NamedTuple):
@@ -91,7 +95,25 @@ def offdiag_matvec(m: FvMatrix, psi: torch.Tensor, topo) -> torch.Tensor:
 
 def matvec(m: FvMatrix, psi: torch.Tensor, topo) -> torch.Tensor:
     """Volume-integrated A @ psi."""
+    hm = active_halo(topo)
+    if hm is not None:
+        return hm(m.diag, m.lower, m.upper, psi)
     return _match_rank(m.diag, psi) * psi + offdiag_matvec(m, psi, topo)
+
+
+def banded(topo) -> bool:
+    """True when products on ``topo`` run as DIA kernels: the mesh is
+    banded and no halo route is active (that route is cell-major)."""
+    return topo.dia() is not None and active_halo(topo) is None
+
+
+def _halo_closure(m: FvMatrix, topo, component_major):
+    hm = active_halo(topo)
+    if hm is None:
+        return None
+    if component_major:
+        raise ValueError("the halo route runs vector fields cell-major")
+    return lambda x: hm(m.diag, m.lower, m.upper, x)
 
 
 def dia_bands(m: FvMatrix, topo):
@@ -142,8 +164,12 @@ def matvec_fn(m: FvMatrix, topo, component_major: bool = False):
     SHARED band coefficients; the diagonal may be shared (nc,) or per
     component (nc, C). Callers (fvsolve) transpose once at solve entry and
     exit. Falls back to the face-based ``matvec`` when the mesh is not
-    banded (cell-major only).
+    banded (cell-major only). Under the halo route every application is
+    one ``HaloMatvec`` product (cell-major only).
     """
+    halo = _halo_closure(m, topo, component_major)
+    if halo is not None:
+        return halo
     bands = dia_bands(m, topo)
     if bands is None:
         if component_major:
@@ -185,13 +211,18 @@ def matvec_t_fn(m: FvMatrix, topo, component_major: bool = False):
     serves the adjoint's preconditioners and the transpose solves of the
     implicit ``fvsolve.solve`` rule, whose matrices are frozen. Falls back
     to the face-based product of the LDU transpose when the mesh is not
-    banded (cell-major only).
+    banded (cell-major only). Under the halo route it is the
+    ``HaloMatvec`` product of the transpose: lower and upper swapped.
     """
+    mt = FvMatrix(m.diag.detach(), m.upper.detach(), m.lower.detach(),
+                  m.source)
+    halo = _halo_closure(mt, topo, component_major)
+    if halo is not None:
+        return halo
     bands = dia_bands(m, topo)
     if bands is None:
         if component_major:
             raise ValueError("component-major matvec needs a banded mesh")
-        mt = FvMatrix(m.diag, m.upper, m.lower, m.source)
         return lambda x: matvec(mt, x, topo)
     offsets, coef = bands
     coef = coef.detach().contiguous()

@@ -100,14 +100,21 @@ def hisa_options(layout="canonical", hisa=None, **over):
     return opts
 
 
+def port_solver(opts):
+    from dafoam_tpu_torch.solvers import make_solver
+    pts, topo = bump_channel("torch")
+    return make_solver(opts, topo, pts, device="cpu", dtype=F64)
+
+
+def jax_solver(opts):
+    from dafoam_tpu.solvers import make_solver
+    pts, topo = bump_channel("jax")
+    return make_solver(opts, topo, pts)
+
+
 def make_pair(opts):
-    from dafoam_tpu.solvers import make_solver as jmake
-    from dafoam_tpu_torch.solvers import make_solver as tmake
-    pj, tj = bump_channel("jax")
-    pt, tt = bump_channel("torch")
-    js = jmake(opts, tj, pj)
-    ts = tmake(opts, tt, pt, device="cpu", dtype=F64)
-    return js, ts, js.make_inputs()
+    js = jax_solver(opts)
+    return js, port_solver(opts), js.make_inputs()
 
 
 def perturbed_state(js, seed=0):
@@ -131,7 +138,8 @@ def jnp_tree(t):
 SCHEMES = ("AUSMPlusUp", "JST", "laxFriedrichs")
 # dafoam_tpu's side of the layout-parametrized tests, computed once per
 # file on the canonical layout (HiSA's states are cell fields, so the
-# port's dense layout compares against the same arrays)
+# port's dense layout compares against the same arrays; dafoam_tpu's
+# inputs are the same on either layout)
 _JAX = {}
 
 
@@ -143,9 +151,10 @@ def viscous_options(layout, viscous, **over):
 
 
 def jax_residuals(viscous):
-    """(state, cotangent, [(R, (vjp_W, vjp_x)) per flux scheme])."""
+    """(state, cotangent, [(R, (vjp_W, vjp_x)) per flux scheme], inputs)."""
     if viscous not in _JAX:
-        js, _, jin = make_pair(viscous_options("canonical", viscous))
+        js = jax_solver(viscous_options("canonical", viscous))
+        jin = js.make_inputs()
         st = perturbed_state(js)
         rng = np.random.default_rng(9)
         v = {k: rng.standard_normal(a.shape) for k, a in st.items()}
@@ -161,7 +170,7 @@ def jax_residuals(viscous):
             return out
 
         _JAX[viscous] = (st, v, to_numpy(jfun(jnp_tree(st), jin,
-                                              jnp_tree(v))))
+                                              jnp_tree(v))), to_numpy(jin))
     return _JAX[viscous]
 
 
@@ -169,9 +178,9 @@ def jax_residuals(viscous):
 @pytest.mark.parametrize("viscous", [False, True],
                          ids=["inviscid", "viscous"])
 def test_residuals_and_vjp(layout, viscous):
-    js, ts, jin = make_pair(viscous_options(layout, viscous))
-    tin = convert.inputs_from_numpy(to_numpy(jin), "cpu", F64)
-    st, v, jout = jax_residuals(viscous)
+    ts = port_solver(viscous_options(layout, viscous))
+    st, v, jout, jin = jax_residuals(viscous)
+    tin = convert.inputs_from_numpy(jin, "cpu", F64)
     for sch, (rj, (gwj, gxj)) in zip(SCHEMES, jout):
         wt = {k: torch.tensor(a).requires_grad_() for k, a in st.items()}
         xt = tree.tmap(lambda a: a.detach().clone().requires_grad_(), tin)
@@ -268,21 +277,24 @@ PINNED = {"sequenceFlux": False, "innerIters": 20, "innerRelTol": 0.0}
 
 
 def jax_ptc():
-    """dafoam_tpu's three pinned PTC iterations (canonical layout)."""
+    """dafoam_tpu's three pinned PTC iterations (canonical layout) and its
+    inputs."""
     if "ptc" not in _JAX:
-        js, _, jin = make_pair(hisa_options(
+        js = jax_solver(hisa_options(
             "canonical", hisa=PINNED, primalMaxIters=3, primalMinIters=3))
+        jin = js.make_inputs()
         jw, jinfo = js.run_primal(js.init_state(), jin)
-        _JAX["ptc"] = (to_numpy(jw), int(jinfo.iters), float(jinfo.max_res))
+        _JAX["ptc"] = (to_numpy(jw), int(jinfo.iters), float(jinfo.max_res),
+                       to_numpy(jin))
     return _JAX["ptc"]
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_ptc_three_iterations(layout):
-    js, ts, jin = make_pair(hisa_options(
+    ts = port_solver(hisa_options(
         layout, hisa=PINNED, primalMaxIters=3, primalMinIters=3))
-    tin = convert.inputs_from_numpy(to_numpy(jin), "cpu", F64)
-    jw, jiters, jres = jax_ptc()
+    jw, jiters, jres, jin = jax_ptc()
+    tin = convert.inputs_from_numpy(jin, "cpu", F64)
     tw, tinfo = ts.run_primal(ts.init_state(), tin)
     assert jiters == tinfo.iters == 3
     assert ts.solve_stats["ptc_gmres"] == [3, 60]

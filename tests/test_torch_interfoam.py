@@ -89,14 +89,18 @@ def dam_options(layout="canonical", **over):
     return opts
 
 
-def make_pair(opts):
-    from dafoam_tpu.mesh import box_hex_mesh as jbox
-    from dafoam_tpu.solvers import make_solver as jmake
-    from dafoam_tpu_torch.mesh import box_hex_mesh as tbox
-    from dafoam_tpu_torch.solvers import make_solver as tmake
-    pj, tj = jbox(12, 8, 1, (0.6, 0.4, 0.02), kinds=KINDS)
-    pt, tt = tbox(12, 8, 1, (0.6, 0.4, 0.02), kinds=KINDS)
-    return jmake(opts, tj, pj), tmake(opts, tt, pt, device="cpu", dtype=F64)
+def jax_solver(opts):
+    from dafoam_tpu.mesh import box_hex_mesh
+    from dafoam_tpu.solvers import make_solver
+    pts, topo = box_hex_mesh(12, 8, 1, (0.6, 0.4, 0.02), kinds=KINDS)
+    return make_solver(opts, topo, pts)
+
+
+def port_solver(opts):
+    from dafoam_tpu_torch.mesh import box_hex_mesh
+    from dafoam_tpu_torch.solvers import make_solver
+    pts, topo = box_hex_mesh(12, 8, 1, (0.6, 0.4, 0.02), kinds=KINDS)
+    return make_solver(opts, topo, pts, device="cpu", dtype=F64)
 
 
 def water_column(solver):
@@ -115,7 +119,7 @@ def initial_state(solver, like):
 def jax_case():
     """dafoam_tpu's history and totals, alpha_update + vjp at the initial
     state, residuals + vjp at step 2."""
-    js, _ = make_pair(dam_options())
+    js = jax_solver(dam_options())
     jin = js.make_inputs()
     st0 = initial_state(js, jnp.asarray)
     _, hist = jax.jit(js.solve_primal_history)(st0, jin)
@@ -159,7 +163,7 @@ def jax_case():
 def test_alpha_update_at_tie_state(jax_case, layout):
     js, jin, st0 = jax_case[:3]
     va, (a_j, aphi_j, rho_j, mu_j), (ga, gphi, gU, gx) = jax_case[5]
-    _, ts = make_pair(dam_options(layout))
+    ts = port_solver(dam_options(layout))
     nf = js.topo.n_faces
     s = {k: torch.tensor(a, requires_grad=True)
          for k, a in to_layout(st0, ts.topo, nf).items()}
@@ -195,7 +199,7 @@ def test_alpha_update_at_tie_state(jax_case, layout):
 def test_residuals_and_vjp(jax_case, layout):
     js, jin = jax_case[:2]
     W, v, r_j, g_j = jax_case[6]
-    _, ts = make_pair(dam_options(layout))
+    ts = port_solver(dam_options(layout))
     nf = js.topo.n_faces
     wt = [{k: torch.tensor(a, requires_grad=True)
            for k, a in to_layout(s, ts.topo, nf).items()} for s in W]
@@ -230,7 +234,7 @@ def port_case(request, jax_case):
     layout = request.param
     over = {} if layout == "canonical" else \
         {"adjEqnOption": dict(ADJ, pcType="segregated")}
-    _, ts = make_pair(dam_options(layout, **over))
+    ts = port_solver(dam_options(layout, **over))
     x = convert.inputs_from_numpy(jax_case[1], "cpu", F64)
     st0 = convert.state_from_numpy(
         to_layout(jax_case[2], ts.topo, jax_case[0].topo.n_faces), "cpu",

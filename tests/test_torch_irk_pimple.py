@@ -72,14 +72,18 @@ def irk_options(layout="canonical"):
     }
 
 
-def make_pair(opts):
-    from dafoam_tpu.mesh import box_hex_mesh as jbox
-    from dafoam_tpu.solvers import make_solver as jmake
-    from dafoam_tpu_torch.mesh import box_hex_mesh as tbox
-    from dafoam_tpu_torch.solvers import make_solver as tmake
-    pj, tj = jbox(8, 8, 1, (0.1, 0.1, 0.01), kinds=WALLS)
-    pt, tt = tbox(8, 8, 1, (0.1, 0.1, 0.01), kinds=WALLS)
-    return jmake(opts, tj, pj), tmake(opts, tt, pt, device="cpu", dtype=F64)
+def jax_solver(opts):
+    from dafoam_tpu.mesh import box_hex_mesh
+    from dafoam_tpu.solvers import make_solver
+    pts, topo = box_hex_mesh(8, 8, 1, (0.1, 0.1, 0.01), kinds=WALLS)
+    return make_solver(opts, topo, pts)
+
+
+def port_solver(opts):
+    from dafoam_tpu_torch.mesh import box_hex_mesh
+    from dafoam_tpu_torch.solvers import make_solver
+    pts, topo = box_hex_mesh(8, 8, 1, (0.1, 0.1, 0.01), kinds=WALLS)
+    return make_solver(opts, topo, pts, device="cpu", dtype=F64)
 
 
 def flat(tot):
@@ -90,7 +94,7 @@ def flat(tot):
 @pytest.fixture(scope="module")
 def jax_case():
     """dafoam_tpu's history, totals, and residual + vjp at step 2."""
-    js, _ = make_pair(irk_options())
+    js = jax_solver(irk_options())
     jin = js.make_inputs()
     _, hist = jax.jit(js.solve_primal_history)(js.init_state(), jin)
     tot, resids = jax.jit(
@@ -117,7 +121,7 @@ def jax_case():
 
 def test_state_layout_and_convert(jax_case):
     js = jax_case[0]
-    _, ts = make_pair(irk_options())
+    ts = port_solver(irk_options())
     assert isinstance(ts, DAIrkPimpleFoam)
     assert ts.state_info == type(ts.state_info)(
         **{f: getattr(js.state_info, f) for f in
@@ -140,7 +144,7 @@ def test_state_layout_and_convert(jax_case):
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_residuals_and_vjp(jax_case, layout):
     js, jin, _, _, (W, v, r_j, g_j) = jax_case
-    _, ts = make_pair(irk_options(layout))
+    ts = port_solver(irk_options(layout))
     nf = js.topo.n_faces
     wt = [{k: torch.tensor(a, requires_grad=True)
            for k, a in to_layout(s, ts.topo, nf).items()} for s in W]
@@ -173,7 +177,7 @@ def test_residuals_and_vjp(jax_case, layout):
 @pytest.fixture(scope="module", params=LAYOUTS)
 def port_case(request, jax_case):
     layout = request.param
-    _, ts = make_pair(irk_options(layout))
+    ts = port_solver(irk_options(layout))
     x = convert.inputs_from_numpy(jax_case[1], "cpu", F64)
     with torch.no_grad():
         _, hist = ts.solve_primal_history(ts.init_state(), x)

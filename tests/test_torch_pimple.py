@@ -86,14 +86,18 @@ def cavity_options(layout="canonical", **over):
     return opts
 
 
-def make_pair(opts):
-    from dafoam_tpu.mesh import box_hex_mesh as jbox
-    from dafoam_tpu.solvers import make_solver as jmake
-    from dafoam_tpu_torch.mesh import box_hex_mesh as tbox
-    from dafoam_tpu_torch.solvers import make_solver as tmake
-    pj, tj = jbox(8, 8, 1, (0.1, 0.1, 0.01), kinds=WALLS)
-    pt, tt = tbox(8, 8, 1, (0.1, 0.1, 0.01), kinds=WALLS)
-    return jmake(opts, tj, pj), tmake(opts, tt, pt, device="cpu", dtype=F64)
+def jax_solver(opts):
+    from dafoam_tpu.mesh import box_hex_mesh
+    from dafoam_tpu.solvers import make_solver
+    pts, topo = box_hex_mesh(8, 8, 1, (0.1, 0.1, 0.01), kinds=WALLS)
+    return make_solver(opts, topo, pts)
+
+
+def port_solver(opts):
+    from dafoam_tpu_torch.mesh import box_hex_mesh
+    from dafoam_tpu_torch.solvers import make_solver
+    pts, topo = box_hex_mesh(8, 8, 1, (0.1, 0.1, 0.01), kinds=WALLS)
+    return make_solver(opts, topo, pts, device="cpu", dtype=F64)
 
 
 def assert_totals(got, want, rel, what):
@@ -114,7 +118,7 @@ def jax_case():
     """dafoam_tpu's Euler primal history, J and totals on the canonical
     layout (the golden's), unpreconditioned as the golden runs: one
     compile each."""
-    js, _ = make_pair(cavity_options())
+    js = jax_solver(cavity_options())
     jin = js.make_inputs()
     _, jhist = jax.jit(js.solve_primal_history)(js.init_state(), jin)
     jJ, _ = js.eval_function_history("lidF", jhist, jin)
@@ -128,7 +132,7 @@ def port_case(request):
     with the segregated PC (unpreconditioned, the dense layout's sweep
     stalls at the 1000-iteration cap)."""
     layout = request.param
-    _, ts = make_pair(cavity_options(layout, adjEqnOption=SEGREGATED))
+    ts = port_solver(cavity_options(layout, adjEqnOption=SEGREGATED))
     x = ts.make_inputs()
     dk.reset_counts()
     with torch.no_grad():
@@ -182,7 +186,7 @@ def jax_products(jax_case):
     v = {k: rng.standard_normal(a.shape) for k, a in W[0].items()}
     res = {}
     for scheme in ("Euler", "backward"):
-        js = make_pair(cavity_options(ddtScheme=scheme))[0]
+        js = jax_solver(cavity_options(ddtScheme=scheme))
 
         @jax.jit
         def jfun(w, wo, woo, x, vv):
@@ -193,9 +197,9 @@ def jax_products(jax_case):
         res[scheme] = to_numpy(jfun(
             *[{k: jnp.asarray(a) for k, a in s.items()} for s in W], jin,
             {k: jnp.asarray(a) for k, a in v.items()}))
-    js = make_pair(cavity_options(
+    js = jax_solver(cavity_options(
         primalLinearSolver=PINNED,
-        pimple={"nOuterCorrectors": 4, "nCorrectors": 2}))[0]
+        pimple={"nOuterCorrectors": 4, "nCorrectors": 2}))
     W2 = {k: a[2] for k, a in jhist.items()}
     geom_j = js.geometry(jin)
     step = to_numpy(jax.jit(lambda w: js._step(w, jin, geom_j,
@@ -210,7 +214,7 @@ def test_residuals_unsteady_and_vjp(port_case, jax_products, scheme):
     layout = port_case[0]
     nf, jin, W, v, res, _, _ = jax_products
     rj, gj = res[scheme]
-    ts = make_pair(cavity_options(layout, ddtScheme=scheme))[1]
+    ts = port_solver(cavity_options(layout, ddtScheme=scheme))
     tin = convert.inputs_from_numpy(jin, "cpu", F64)
     wt = [{k: torch.tensor(a).requires_grad_()
            for k, a in to_layout(s, ts.topo, nf).items()} for s in W]
@@ -252,7 +256,7 @@ def test_step_pinned(port_case, jax_products):
     nf, jin, _, _, _, W2, jst = jax_products
     opts = cavity_options(layout, primalLinearSolver=PINNED,
                           pimple={"nOuterCorrectors": 4, "nCorrectors": 2})
-    ts = make_pair(opts)[1]
+    ts = port_solver(opts)
     tin = convert.inputs_from_numpy(jin, "cpu", F64)
     with torch.no_grad():
         tst = ts._step(convert.state_from_numpy(to_layout(W2, ts.topo, nf),
@@ -295,7 +299,7 @@ def test_sweep_on_jax_history(jax_case):
     """The port's reverse sweep on dafoam_tpu's history, carried over by
     convert.history_from_numpy, gives dafoam_tpu's totals."""
     _, jin, jhist, _, jtot = jax_case
-    _, ts = make_pair(cavity_options(adjEqnOption=SEGREGATED))
+    ts = port_solver(cavity_options(adjEqnOption=SEGREGATED))
     hist = convert.history_from_numpy(jhist, "cpu", F64)
     back = convert.history_to_numpy(hist)
     for k in jhist:
@@ -341,9 +345,9 @@ def test_bdf2_against_jax(jax_case):
     """Canonical layout, dafoam_tpu unpreconditioned, the port with the
     segregated PC."""
     jin = jax_case[1]
-    js = make_pair(cavity_options(ddtScheme="backward"))[0]
-    ts = make_pair(cavity_options(ddtScheme="backward",
-                                  adjEqnOption=SEGREGATED))[1]
+    js = jax_solver(cavity_options(ddtScheme="backward"))
+    ts = port_solver(cavity_options(ddtScheme="backward",
+                                    adjEqnOption=SEGREGATED))
     assert js.ddt_order == ts.ddt_order == 2
     _, jhist = jax.jit(js.solve_primal_history)(js.init_state(), jin)
     jtot, _ = js.solve_unsteady_adjoint(jhist, jin, "lidF")

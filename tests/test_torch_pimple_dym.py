@@ -77,21 +77,25 @@ def dym_options(layout="canonical", **over):
     return opts
 
 
-def make_pair(opts):
-    from dafoam_tpu.mesh import box_hex_mesh as jbox
-    from dafoam_tpu.solvers import make_solver as jmake
-    from dafoam_tpu_torch.mesh import box_hex_mesh as tbox
-    from dafoam_tpu_torch.solvers import make_solver as tmake
-    pj, tj = jbox(12, 6, 1, (1.0, 0.2, 0.02), kinds=KINDS)
-    pt, tt = tbox(12, 6, 1, (1.0, 0.2, 0.02), kinds=KINDS)
-    return jmake(opts, tj, pj), tmake(opts, tt, pt, device="cpu", dtype=F64)
+def jax_solver(opts):
+    from dafoam_tpu.mesh import box_hex_mesh
+    from dafoam_tpu.solvers import make_solver
+    pts, topo = box_hex_mesh(12, 6, 1, (1.0, 0.2, 0.02), kinds=KINDS)
+    return make_solver(opts, topo, pts)
+
+
+def port_solver(opts):
+    from dafoam_tpu_torch.mesh import box_hex_mesh
+    from dafoam_tpu_torch.solvers import make_solver
+    pts, topo = box_hex_mesh(12, 6, 1, (1.0, 0.2, 0.02), kinds=KINDS)
+    return make_solver(opts, topo, pts, device="cpu", dtype=F64)
 
 
 @pytest.fixture(scope="module")
 def jax_case():
     """dafoam_tpu's history, totals, mesh flux and the residual + vjp of
     step 2."""
-    js, _ = make_pair(dym_options())
+    js = jax_solver(dym_options())
     jin = js.make_inputs()
     _, hist = jax.jit(js.solve_primal_history)(js.init_state(), jin)
     tot, resids = jax.jit(
@@ -122,7 +126,7 @@ def jax_case():
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_mesh_phi_and_scl(jax_case, layout):
     js, jin = jax_case[:2]
-    _, ts = make_pair(dym_options(layout))
+    ts = port_solver(dym_options(layout))
     x = convert.inputs_from_numpy(jin, "cpu", F64)
     t0, t1 = 0.3 * DT, 1.7 * DT
     p1 = ts.points_at(x, t1)
@@ -139,7 +143,7 @@ def test_mesh_phi_and_scl(jax_case, layout):
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_residuals_and_vjp(jax_case, layout):
     js, jin, _, _, (W, v, r_j, g_j), _ = jax_case
-    _, ts = make_pair(dym_options(layout))
+    ts = port_solver(dym_options(layout))
     nf = js.topo.n_faces
     wt = [{k: torch.tensor(a, requires_grad=True)
            for k, a in to_layout(s, ts.topo, nf).items()} for s in W]
@@ -174,7 +178,7 @@ def port_case(request, jax_case):
     layout = request.param
     over = {} if layout == "canonical" else \
         {"adjEqnOption": dict(ADJ, pcType="segregated")}
-    _, ts = make_pair(dym_options(layout, **over))
+    ts = port_solver(dym_options(layout, **over))
     x = convert.inputs_from_numpy(jax_case[1], "cpu", F64)
     with torch.no_grad():
         _, hist = ts.solve_primal_history(ts.init_state(), x)

@@ -78,31 +78,36 @@ def channel_options(layout="canonical"):
     }
 
 
-def make_pair(layout):
-    from dafoam_tpu.mesh import box_hex_mesh as jbox
-    from dafoam_tpu.solvers import make_solver as jmake
-    from dafoam_tpu_torch.mesh import box_hex_mesh as tbox
-    from dafoam_tpu_torch.solvers import make_solver as tmake
-    opts = channel_options(layout)
-    pj, tj = jbox(12, 6, 1, (1.0, 0.1, 0.01), kinds=KINDS)
-    pt, tt = tbox(12, 6, 1, (1.0, 0.1, 0.01), kinds=KINDS)
-    js = jmake(opts, tj, pj)
-    return js, tmake(opts, tt, pt, device="cpu", dtype=F64), js.make_inputs()
+def jax_solver(layout):
+    from dafoam_tpu.mesh import box_hex_mesh
+    from dafoam_tpu.solvers import make_solver
+    pts, topo = box_hex_mesh(12, 6, 1, (1.0, 0.1, 0.01), kinds=KINDS)
+    return make_solver(channel_options(layout), topo, pts)
+
+
+def port_solver(layout):
+    from dafoam_tpu_torch.mesh import box_hex_mesh
+    from dafoam_tpu_torch.solvers import make_solver
+    pts, topo = box_hex_mesh(12, 6, 1, (1.0, 0.1, 0.01), kinds=KINDS)
+    return make_solver(channel_options(layout), topo, pts, device="cpu",
+                       dtype=F64)
 
 
 @pytest.fixture(scope="module")
 def jax_case():
-    """dafoam_tpu's history and totals on the canonical layout."""
-    js, _, jin = make_pair("canonical")
+    """dafoam_tpu's inputs, history and totals on the canonical layout
+    (its inputs are the same on either layout)."""
+    js = jax_solver("canonical")
+    jin = js.make_inputs()
     _, jhist = jax.jit(js.solve_primal_history)(js.init_state(), jin)
     jtot, _ = js.solve_unsteady_adjoint(jhist, jin, "Tout")
     return to_numpy(jin), to_numpy(jhist), to_numpy(jtot)
 
 
 @pytest.fixture(scope="module", params=LAYOUTS)
-def port_case(request):
-    _, ts, jin = make_pair(request.param)
-    tin = convert.inputs_from_numpy(to_numpy(jin), "cpu", F64)
+def port_case(request, jax_case):
+    ts = port_solver(request.param)
+    tin = convert.inputs_from_numpy(jax_case[0], "cpu", F64)
     dk.reset_counts()
     with torch.no_grad():
         _, hist = ts.solve_primal_history(ts.init_state(), tin)
@@ -115,7 +120,7 @@ def jax_residuals(jax_case):
     perturbed, on the canonical layout (one compile; the port's dense
     layout takes them through face_map_old2new)."""
     jin, jhist, _ = jax_case
-    js = make_pair("canonical")[0]
+    js = jax_solver("canonical")
     rng = np.random.default_rng(23)
     W = [{k: a[n] * (1.0 + 0.02 * rng.standard_normal(a[n].shape))
           for k, a in jhist.items()} for n in (3, 2)]

@@ -76,14 +76,22 @@ def ts_options(layout="canonical", **over):
     return opts
 
 
+def jax_solver(opts):
+    from dafoam_tpu.mesh import box_hex_mesh
+    from dafoam_tpu.solvers import make_solver
+    pts, topo = box_hex_mesh(10, 6, 1, (1.0, 0.6, 0.1), kinds=KINDS)
+    return make_solver(opts, topo, pts)
+
+
+def port_solver(opts):
+    from dafoam_tpu_torch.mesh import box_hex_mesh
+    from dafoam_tpu_torch.solvers import make_solver
+    pts, topo = box_hex_mesh(10, 6, 1, (1.0, 0.6, 0.1), kinds=KINDS)
+    return make_solver(opts, topo, pts, device="cpu", dtype=F64)
+
+
 def make_pair(opts):
-    from dafoam_tpu.mesh import box_hex_mesh as jbox
-    from dafoam_tpu.solvers import make_solver as jmake
-    from dafoam_tpu_torch.mesh import box_hex_mesh as tbox
-    from dafoam_tpu_torch.solvers import make_solver as tmake
-    pj, tj = jbox(10, 6, 1, (1.0, 0.6, 0.1), kinds=KINDS)
-    pt, tt = tbox(10, 6, 1, (1.0, 0.6, 0.1), kinds=KINDS)
-    return jmake(opts, tj, pj), tmake(opts, tt, pt, device="cpu", dtype=F64)
+    return jax_solver(opts), port_solver(opts)
 
 
 def frozen_u(inputs, n_cells, like):
@@ -103,7 +111,7 @@ def perturbed(st, seed):
 def jax_case():
     """dafoam_tpu's three sweeps from the initial state, and at that state
     J, the adjoint totals and one residual vjp at a perturbation of it."""
-    js, _ = make_pair(ts_options(**PINNED))
+    js = jax_solver(ts_options(**PINNED))
     jin = frozen_u(js.make_inputs(), js.topo.n_cells, jnp.asarray)
     st, info = jax.jit(js.solve_primal)(js.init_state(), jin)
 
@@ -156,7 +164,7 @@ def test_residuals_and_vjp(jax_case, layout):
     jin = jax_case[1]
     W, v, r_j, (gw_j, gx_j) = jax_case[5]
 
-    _, ts = make_pair(ts_options(layout))
+    ts = port_solver(ts_options(layout))
     w = {k: torch.tensor(a, requires_grad=True) for k, a in W.items()}
     x = tree.tmap(lambda a: a.detach().clone().requires_grad_(),
                   port_inputs(jin))
@@ -179,7 +187,7 @@ def test_residuals_and_vjp(jax_case, layout):
 def test_sweeps_pinned(jax_case):
     """Three sweeps from the initial state."""
     _, jin, jst = jax_case[:3]
-    _, ts = make_pair(ts_options(**PINNED))
+    ts = port_solver(ts_options(**PINNED))
     st, info = ts.run_primal(ts.init_state(), port_inputs(jin))
     assert info.iters == 3 and not info.failed
     assert ts.solve_stats["T"][0] == 15
@@ -190,7 +198,7 @@ def test_sweeps_pinned(jax_case):
 def test_totals_against_jax(jax_case):
     """At dafoam_tpu's state after three sweeps."""
     _, jin, jst, jJ, jtot = jax_case[:5]
-    _, ts = make_pair(ts_options())
+    ts = port_solver(ts_options())
     x = port_inputs(jin)
     st = convert.state_from_numpy(jst, "cpu", F64)
     J = float(ts.run_function("TMean", st, x))
