@@ -145,11 +145,20 @@ case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
    the water volume kept to rel 1e-5, the centre of mass moving right and
    down; then the in-memory sweep (two-phase segregated PC); K1 in the
    primal (no predictor solve), K3a in the sweep;
+15a. steady DAScalarTransportFoam on phase 15's box at FULL x FULL
+   (f32, dense): a fixedValue 1.6 inlet, the frozen velocity (0.4, 0, 0),
+   variableVolSum of T; the Picard primal (one solve), one FGMRES cycle
+   with the default (segregated) PC to SCALAR_REL within SCALAR_GMRES
+   iterations and the totals: psi and the totals finite, psi's true
+   residual within 10x of GMRES's estimate; prints GMRES iterations,
+   resid0 -> resid, the columns where the PC returned a zero direction
+   (FGMRES takes V[j] there) and seconds; K1 in the primal, K3a in the
+   adjoint, no plain version;
 15. time-spectral DAScalarTransportFoam ("hybrid"): the 1.0 x 0.6 box at
    FULL x FULL with 5 instances, TS_SWEEPS block Gauss-Seidel sweeps
    (residual must fall), one TS_GMRES-iteration FGMRES cycle with the
-   lineJacobi PC and the totals (finite); K1 and K3a, no plain version.
-   Phase 15 runs before 14;
+   default (segregated) PC and the totals, held and reported as 15a's;
+   K1 and K3a, no plain version. Phases 15a and 15 run before 14;
 16. shape optimization: the workflow of
    dafoam_tpu_torch/examples/naca0012_drag_opt.py on phase 5's case and
    state: an 8x4x2 FFD box (12 y-displacement DVs), ShapeOptProblem's
@@ -222,7 +231,8 @@ time step and of one reverse step (phase 11's). The last line of
 standard output is one JSON object with "ok" and the device; the line
 before it repeats the card's name and power limit, and the one before
 that lists every kernel with its launches on the full-width paths
-(phases 5, 5b, 5c, 6, 6b, 6c, 6d, 8, 8b, 9, 9b, 10, 11, 11b and 12-20,
+(phases 5, 5b, 5c, 6, 6b, 6c, 6d, 8, 8b, 9, 9b, 10, 11, 11b, 12-14,
+15a, 15 and 16-20,
 each counted from zero; "launches_by_path" splits them, phase 19's as
 "io_primal" and "io_adjoint", phase 20's f64 runs as "shard" (the halo
 route), "shard_reference" (the unsharded route) and "shard_banded" (the
@@ -714,11 +724,30 @@ INTER_PITERS = 1000
 # phase 15: tests/test_time_spectral.py:_case's box at 512x512 with N = 5
 # instances, the block Gauss-Seidel primal capped at TS_SWEEPS sweeps
 # (BiCGStab to rel 1e-3, at most 100 iterations per instance solve), one
-# TS_GMRES-iteration residual-form FGMRES cycle with the lineJacobi PC. The
-# segregated PC's 15 BiCGStab sweeps per instance block turned the first
-# FGMRES iteration NaN in the CPU rehearsal at 128x128 (f32)
+# TS_GMRES-iteration residual-form FGMRES cycle with the default segregated
+# PC. Its 15 Jacobi-BiCGStab sweeps per instance block return exactly 0 for
+# the first FGMRES column (the right-hand side is close to a constant
+# field), which once ended the cycle as converged with a NaN psi; FGMRES
+# now takes that column unpreconditioned (linalg/krylov.gmres, pc_failed).
+# The cycle is asked for SCALAR_REL, as phase 15a's: at 64x64 its 60
+# iterations took GMRES's estimate 11x below psi's true residual, the f32
+# floor (a CPU rehearsal of this phase)
 TS_SWEEPS = 30
 TS_GMRES = 60
+# phase 15a: the steady scalar transport on phase 15's box, the same
+# adjoint right-hand side (variableVolSum of T) and default PC. The
+# equation is linear on this orthogonal box, so the Picard primal stops
+# after its first solve (SCALAR_TOL: the f32 residual stalls far above the
+# default 1e-8 and would run all 50 Picard solves). The FGMRES cycle is
+# capped at SCALAR_GMRES and asked for SCALAR_REL: in f32 psi's true
+# residual stalls at ~2e-4, 1.1e-3 and 5.1e-3 of ||b|| at 64, 128 and
+# 256 cells a side (dafoam_tpu's unpreconditioned one at 4e-4 at 64:
+# scripts/torch_parity_checks.py floor), while GMRES's estimate keeps
+# falling, so a tighter request would end with an estimate far below the
+# true residual
+SCALAR_TOL = 1e30
+SCALAR_GMRES = 60
+SCALAR_REL = 1e-2
 
 
 def unsteady_adjoint():
@@ -813,9 +842,29 @@ def ts_options():
         "function": {"TMean": {"type": "variableVolSum", "varName": "T",
                                "scale": 1.0, "timeOp": "max",
                                "timeOpMaxMode": "KS", "coeffKS": 50.0}},
-        "adjEqnOption": {"gmresRelTol": 1e-12, "gmresAbsTol": 1e-30,
+        "adjEqnOption": {"gmresRelTol": SCALAR_REL, "gmresAbsTol": 1e-30,
                          "gmresRestart": TS_GMRES,
-                         "gmresMaxIters": TS_GMRES, "pcType": "lineJacobi"},
+                         "gmresMaxIters": TS_GMRES},
+        "normalizeStates": {"T": 1.0},
+        "meshFaceLayout": "diaDense"}
+
+
+def scalar_full_options():
+    zero_grad = {"type": "zeroGradient"}
+    return {
+        "solverName": "DAScalarTransportFoam", "ddtScheme": "steadyState",
+        "transportProperties": {"DT": 0.05},
+        "boundaryConditions": {
+            "T": {"xmin": {"type": "fixedValue", "value": 1.6},
+                  "xmax": zero_grad, "ymin": zero_grad,
+                  "ymax": zero_grad}},
+        "initialFields": {"T": 1.0},
+        "primalMinResTol": SCALAR_TOL,
+        "function": {"TMean": {"type": "variableVolSum", "varName": "T",
+                               "scale": 1.0}},
+        "adjEqnOption": {"gmresRelTol": SCALAR_REL, "gmresAbsTol": 1e-30,
+                         "gmresRestart": SCALAR_GMRES,
+                         "gmresMaxIters": SCALAR_GMRES},
         "normalizeStates": {"T": 1.0},
         "meshFaceLayout": "diaDense"}
 
@@ -2395,20 +2444,106 @@ def phase_inter_full(torch, dk, make_solver, box):
     return counts, c
 
 
+def _scalar_box(torch, make_solver, box, options):
+    """(solver, inputs) of a scalar-transport option dict on the 1.0 x 0.6
+    box at FULL x FULL (f32, dense), frozen velocity (0.4, 0, 0)."""
+    pts, topo = box(FULL, FULL, 1, (1.0, 0.6, 0.1),
+                    kinds={"zmin": "empty", "zmax": "empty"})
+    s = make_solver(options, topo, pts, device=DEVICE, dtype=torch.float32)
+    x = s.make_inputs()
+    x["params"]["U"] = s._tensor([0.4, 0.0, 0.0]).expand(
+        s.topo.n_cells, 3).contiguous()
+    return s, x
+
+
+def _true_resid(torch, s, st, x, func, psi):
+    """||S (dR/dW^T psi - dJ/dW)||, psi's residual in the normalizeStates
+    metric its FGMRES runs in, by one more product."""
+    from dafoam_tpu_torch.adjoint import solver as adj
+    from dafoam_tpu_torch.linalg.krylov import tnorm
+    from dafoam_tpu_torch.utils import tree
+
+    sc = s._scales(x)
+    dJdW = adj.dJdW_of(lambda w, xx: s.eval_function(func, w, xx), st, x)
+    _, f_vjp = adj.vjp(lambda w: s._norm_residuals(w, x), st)
+    return float(tnorm(tree.tmap(torch.sub, adj._scale(f_vjp(psi), sc),
+                                 adj._scale(dJdW, sc))))
+
+
+def _scalar_adjoint(torch, dk, s, st, x, tag):
+    """The residual-form adjoint of TMean with the solver's default PC and
+    its totals, timed: psi and the totals finite, psi's true residual
+    within 10x of GMRES's estimate (f32). Returns (totals, counts)."""
+    from dafoam_tpu_torch.utils import tree
+
+    dk.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psi, ai = s.solve_adjoint(st, x, "TMean")
+    tot = s.total_derivative(st, x, "TMean", psi)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c = dict(dk.COUNTS)
+    true = _true_resid(torch, s, st, x, "TMean", psi)
+    say(f"[{tag}] {ai.iters} FGMRES iterations (segregated PC; it returned "
+        f"a zero direction in {ai.pc_failed} columns, which took V[j]) + "
+        f"totals in {dt:.2f} s = {dt / max(ai.iters, 1) * 1e3:.1f} ms per "
+        f"iteration; resid {float(ai.resid0):.4e} -> {float(ai.resid):.4e}"
+        f" (true {true:.4e}); dTMean/dDT {float(tot['params']['DT'])!r}; "
+        f"launch counts {c}")
+    check(all(bool(torch.isfinite(v).all()) for v in psi.values()),
+          f"{tag}: psi not finite")
+    check(true <= 10.0 * float(ai.resid),
+          f"{tag}: true residual {true} against GMRES's {ai.resid}")
+    flat = torch.cat([a.reshape(-1) for a in tree.leaves(tot)])
+    check(bool(torch.isfinite(flat).all()), f"{tag}: totals not finite")
+    check_counts(c, f"{tag} adjoint", ("dia_matvec_t",))
+    return tot, c
+
+
+def phase_scalar_full(torch, dk, make_solver, box):
+    """Phase 15a: the steady scalar transport on the 1.0 x 0.6 box at FULL
+    x FULL (f32, dense): the Picard primal, one FGMRES cycle with the
+    default segregated PC and the totals. Returns (primal, adjoint)
+    counts."""
+    s, x = _scalar_box(torch, make_solver, box, scalar_full_options())
+    check(s.option["adjEqnOption"]["pcType"] == "segregated",
+          "15a runs the default PC")
+    st0 = s.init_state()
+    with torch.no_grad():
+        res0 = float(s.residuals(st0, x)["T"].abs().max())
+    dk.reset_counts()
+    s.solve_stats.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, info = s.run_primal(st0, x)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(dk.COUNTS)
+    J = float(s.run_function("TMean", st, x))
+    per = s.solve_stats["T"]
+    say(f"[scalar] {FULL}x{FULL} box ({s.topo.n_cells} cells): "
+        f"{info.iters} Picard iterations in {dt:.2f} s, {per[1] / per[0]:.0f}"
+        f" BiCGStab iterations per solve; max_res {res0:.4e} -> "
+        f"{info.max_res:.4e}; TMean {J!r}; launch counts {counts}")
+    check(not info.failed and s.states_valid(st), "scalar state not valid")
+    check(info.max_res < res0, "scalar residual did not fall")
+    check(math.isfinite(J), "scalar TMean not finite")
+    check_counts(counts, "scalar primal", ("dia_matvec",))
+    _, c = _scalar_adjoint(torch, dk, s, st, x, "scalar-adjoint")
+    return counts, c
+
+
 def phase_ts_full(torch, dk, make_solver, box):
     """Phase 15: the time-spectral scalar transport on the 1.0 x 0.6 box at
     FULL x FULL with 5 instances (f32, dense): TS_SWEEPS block
     Gauss-Seidel sweeps, one TS_GMRES-iteration residual-form FGMRES cycle
-    (lineJacobi PC: per-instance line solves, transposed products through
-    K3a) and the totals. Returns (primal, adjoint) counts."""
-    from dafoam_tpu_torch.utils import tree
-    pts, topo = box(FULL, FULL, 1, (1.0, 0.6, 0.1),
-                    kinds={"zmin": "empty", "zmax": "empty"})
-    s = make_solver(ts_options(), topo, pts, device=DEVICE,
-                    dtype=torch.float32)
-    x = s.make_inputs()
-    x["params"]["U"] = s._tensor([0.4, 0.0, 0.0]).expand(
-        s.topo.n_cells, 3).contiguous()
+    with the default segregated PC (per-instance Jacobi-BiCGStab sweeps,
+    transposed products through K3a) and the totals. Returns (primal,
+    adjoint) counts."""
+    s, x = _scalar_box(torch, make_solver, box, ts_options())
+    check(s.option["adjEqnOption"]["pcType"] == "segregated",
+          "15 runs the default PC")
     st0 = s.init_state()
     with torch.no_grad():
         res0 = float(torch.stack([v.abs().max() for v in
@@ -2435,23 +2570,9 @@ def phase_ts_full(torch, dk, make_solver, box):
     check(info.max_res < res0, "ts residual did not fall")
     check(math.isfinite(J), "TMean not finite")
     check_counts(counts, "ts primal", ("dia_matvec",))
-    dk.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    psi, ai = s.solve_adjoint(st, x, "TMean")
-    tot = s.total_derivative(st, x, "TMean", psi)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    c = dict(dk.COUNTS)
-    amp = float(tot["bc"]["T"]["xmin"]["amplitudes"][0])
-    say(f"[ts-adjoint] {ai.iters} FGMRES iterations + totals in {dt:.2f} s"
-        f" = {dt / max(ai.iters, 1) * 1e3:.1f} ms per iteration; resid "
-        f"{float(ai.resid0):.4e} -> {float(ai.resid):.4e}; "
-        f"dTMean/d(amplitude) {amp!r}, dTMean/dDT "
-        f"{float(tot['params']['DT'])!r}; launch counts {c}")
-    flat = torch.cat([a.reshape(-1) for a in tree.leaves(tot)])
-    check(bool(torch.isfinite(flat).all()), "ts totals not finite")
-    check_counts(c, "ts adjoint", ("dia_matvec_t",))
+    tot, c = _scalar_adjoint(torch, dk, s, st, x, "ts-adjoint")
+    say(f"[ts-adjoint] dTMean/d(amplitude) "
+        f"{float(tot['bc']['T']['xmin']['amplitudes'][0])!r}")
     return counts, c
 
 
@@ -3756,6 +3877,8 @@ def main():
                                                 st)
     irk_counts, irk_adj_counts = phase_irk_full(torch, dk, make_solver,
                                                 box_hex_mesh)
+    scalar_counts, scalar_adj_counts = phase_scalar_full(
+        torch, dk, make_solver, box_hex_mesh)
     ts_counts, ts_adj_counts = phase_ts_full(torch, dk, make_solver,
                                              box_hex_mesh)
     inter_counts, inter_adj_counts = phase_inter_full(torch, dk,
@@ -3809,6 +3932,8 @@ def main():
              "irk_primal": irk_counts, "irk_adjoint": irk_adj_counts,
              "inter_primal": inter_counts,
              "inter_adjoint": inter_adj_counts,
+             "scalar_primal": scalar_counts,
+             "scalar_adjoint": scalar_adj_counts,
              "time_spectral_primal": ts_counts,
              "time_spectral_adjoint": ts_adj_counts,
              "shape_opt": shape_counts, "mphys": mphys_counts,

@@ -20,11 +20,15 @@ partitions in one process or over ``torch.distributed`` ranks, and
 ``shard_solver``). Not ported: dafoam_tpu's GSPMD placement
 (``dafoam_tpu.parallel.shard.shard_case``); see ``parallel/__init__.py``.
 
-``make_solver``, ``box_hex_mesh`` and ``read_polymesh`` are importable
-from the package itself; they load their modules on first access.
+``DAOption`` is imported with the package, as in the reference
+(``option`` needs only the standard library). ``make_solver``,
+``box_hex_mesh`` and ``read_polymesh`` are importable from the package
+itself; they load their modules on first access.
 """
 
 __version__ = "0.1.0"
+
+from dafoam_tpu_torch.option import DAOption  # noqa: F401,E402
 
 
 def __getattr__(name):

@@ -42,6 +42,7 @@ class SolveInfo(NamedTuple):
     resid0: float
     resid: float
     converged: bool
+    pc_failed: int = 0     # gmres: columns whose preconditioner failed
 
 
 def tdot(a, b):
@@ -367,6 +368,16 @@ def gmres(matvec: Callable, b, x0=None, precond: Callable | None = None,
     min_y ||Hbar y|| / ||Z y||; the recycle space survives restarts, and
     with aug0/return_aug it is carried across calls as a (k, n_flat) array.
 
+    Preconditioner failure: a preconditioned direction that is exactly
+    zero or not finite (a PC whose inner sweeps never left their zero
+    start) would make A z = 0 and a zero Givens sine, which reads as
+    convergence. Such a column takes the unpreconditioned V[j] instead,
+    which FGMRES allows because Z is stored; ``SolveInfo.pc_failed``
+    counts these columns. A column whose A z adds nothing to the earlier
+    ones (a zero or non-finite pivot) is left out and ends the cycle; a
+    cycle that keeps no column ends the solve. ``converged`` is never True
+    for a non-finite x.
+
     Layout: the Krylov basis V (m+1, n) and Z live on the vectors' device;
     the small (m+1, m) Hessenberg matrix, its Givens rotations and the
     m x m deflation algebra run on the host in the vectors' dtype. One
@@ -410,16 +421,24 @@ def gmres(matvec: Callable, b, x0=None, precond: Callable | None = None,
         g[0] = npdt(float(beta))
         V[0] = r / torch.clamp_min(beta, tiny)
         unorm = torch.linalg.norm(U, dim=1).cpu().numpy() if k_defl else None
-        k = 0
+        k = n_failed = 0
         done = False
         for j in range(m):
+            failed = None
             if k_defl > 0 and j >= m_arn and unorm[j - m_arn] > tiny:
                 # recycle directions are solution-space vectors: they
                 # enter the augmented basis verbatim (never re-
                 # preconditioned), zero rows fall back to Krylov vectors
                 z = U[j - m_arn]
+            elif flexible:
+                # a zero or non-finite PC direction takes V[j] (no host
+                # read here: the flag rides on the Hessenberg column's)
+                z = prec_flat(V[j])
+                zmax = torch.amax(torch.abs(z))
+                failed = ~(torch.isfinite(zmax) & (zmax > 0))
+                z = torch.where(failed, V[j], z)
             else:
-                z = prec_flat(V[j]) if flexible else V[j]
+                z = V[j]
             if store_z:
                 Z[j] = z
             w = mv_flat(z)
@@ -430,7 +449,12 @@ def gmres(matvec: Callable, b, x0=None, precond: Callable | None = None,
             w = w - V[:j + 1].T @ h2
             hj1 = torch.linalg.norm(w)
             V[j + 1] = w / torch.clamp_min(hj1, tiny)
-            col_h = torch.cat([h1 + h2, hj1[None]]).cpu().numpy()
+            parts = [h1 + h2, hj1[None]]
+            if failed is not None:
+                parts.append(failed[None].to(dtype))
+            col_h = torch.cat(parts).cpu().numpy()
+            if failed is not None:
+                n_failed += int(col_h[j + 2] != 0)
             col = np.zeros((m + 1,), dtype=npdt)
             col[:j + 1] = col_h[:j + 1]
             hj1 = col_h[j + 1]
@@ -441,6 +465,8 @@ def gmres(matvec: Callable, b, x0=None, precond: Callable | None = None,
                 t1 = -sn[i] * col[i] + cs[i] * col[i + 1]
                 col[i], col[i + 1] = t0, t1
             denom = np.sqrt(col[j] ** 2 + hj1 ** 2)
+            if not (np.isfinite(denom) and denom > 0):
+                break           # a zero or non-finite pivot: left out
             c_new = col[j] / max(denom, npdt(tiny))
             s_new = hj1 / max(denom, npdt(tiny))
             cs[j], sn[j] = c_new, s_new
@@ -482,7 +508,7 @@ def gmres(matvec: Callable, b, x0=None, precond: Callable | None = None,
                                     device=dev) @ S[:k]
             nrm = torch.linalg.norm(U_new, dim=1, keepdim=True)
             U = U_new / torch.clamp_min(nrm, tiny)
-        return x, U, resid, done, k
+        return x, U, resid, k, n_failed
 
     if aug0 is None:
         U = torch.zeros((kk, n), dtype=dtype, device=dev)
@@ -505,12 +531,14 @@ def gmres(matvec: Callable, b, x0=None, precond: Callable | None = None,
         U = torch.where(rn > tiny, U / torch.clamp_min(rn, tiny), 0.0)
 
     r0 = float(torch.linalg.norm(flat_b - mv_flat(x)))
-    res, it, done = r0, 0, r0 <= tol
+    res, it, done, n_failed = r0, 0, r0 <= tol, 0
     while it < max_iters and not done:
-        x, U, res, _, k = cycle(x, U)
+        x, U, res, k, nf = cycle(x, U)
         it += k
-        done = res <= tol
-    info = SolveInfo(it, r0, res, res <= tol)
+        n_failed += nf
+        done = res <= tol or k == 0
+    converged = res <= tol and bool(torch.isfinite(x).all())
+    info = SolveInfo(it, r0, res, converged, n_failed)
     if return_aug:
         return unravel(x), info, U
     return unravel(x), info

@@ -34,6 +34,13 @@ def make_turbulence_model(name: str, *args, **kw):
     return turbulence_model_class(name)(*args, **kw)
 
 
+def register_turbulence_model(name, cls):
+    """Make ``cls`` selectable as ``name`` (the turbulenceModel option) by
+    ``make_turbulence_model`` and ``turbulence_model_class``."""
+    _TURB_REGISTRY[name] = cls
+
+
 __all__ = ["TurbulenceModel", "Laminar", "SpalartAllmaras",
            "SpalartAllmarasFv3", "KOmegaSST", "KOmegaSSTLM", "KEpsilon",
-           "KOmega", "make_turbulence_model", "turbulence_model_class"]
+           "KOmega", "make_turbulence_model", "register_turbulence_model",
+           "turbulence_model_class"]

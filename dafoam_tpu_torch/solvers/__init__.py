@@ -26,6 +26,16 @@ _SOLVER_REGISTRY = {c.__name__: c for c in (
     DASolidDisplacementFoam, DARhoSimpleFoam, DARhoSimpleCFoam, DATurboFoam,
     DATopoChtFoam, DAHisaFoam, DAPimpleFoam, DARhoPimpleFoam,
     DAPimpleDyMFoam, DAInterFoam, DAIrkPimpleFoam, DATimeSpectralScalarFoam)}
+
+
+def register_solver(cls):
+    """Add ``cls`` to the run-time selection under its class name
+    (reference register_solver); returns ``cls``, so it also serves as a
+    class decorator. ``make_solver`` builds it like a built-in solver."""
+    _SOLVER_REGISTRY[cls.__name__] = cls
+    return cls
+
+
 # unsteadyAdjoint mode "hybrid" (time-spectral) selects these solvers
 _HYBRID = {"DAScalarTransportFoam": "DATimeSpectralScalarFoam"}
 
@@ -72,4 +82,4 @@ __all__ = ["DASolverBase", "PrimalInfo", "DAScalarTransportFoam",
            "DARhoSimpleFoam", "DARhoSimpleCFoam", "DATurboFoam",
            "DATopoChtFoam", "DAHisaFoam", "DAPimpleFoam", "DARhoPimpleFoam",
            "DAPimpleDyMFoam", "DAInterFoam", "DAIrkPimpleFoam",
-           "DATimeSpectralScalarFoam", "make_solver"]
+           "DATimeSpectralScalarFoam", "make_solver", "register_solver"]

@@ -78,11 +78,22 @@ def test_golden_rho_channel(layout):
     from dafoam_tpu_torch.solvers import make_solver
     with open(os.path.join(REPO, "tests", "golden", "values.json")) as fh:
         want = json.load(fh)["rho_channel"]
-    js, _ = test_rho_simple.channel()
+    # test_rho_simple.channel's options, without building its dafoam_tpu
+    # solver (whose eager geometry compiles every primitive)
+    class _Options:
+        def __init__(self, option, topo, points):
+            self.option = option
+
+        def make_inputs(self):
+            return None
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(test_rho_simple, "make_solver", _Options)
+        js, _ = test_rho_simple.channel()
     pts, topo = box_hex_mesh(16, 8, 1, (1.0, 0.1, 0.01),
                              kinds={"zmin": "empty", "zmax": "empty",
                                     "ymin": "wall", "ymax": "wall"})
-    opts = dict(js.option.all, meshFaceLayout=layout)
+    opts = dict(js.option, meshFaceLayout=layout)
     s = make_solver(opts, topo, pts, device="cpu", dtype=F64)
     x = s.make_inputs()
     w, info = s.run_primal(s.init_state(), x)

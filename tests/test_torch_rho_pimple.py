@@ -95,13 +95,13 @@ def port_solver(layout):
 
 @pytest.fixture(scope="module")
 def jax_case():
-    """dafoam_tpu's inputs, history and totals on the canonical layout
-    (its inputs are the same on either layout)."""
+    """dafoam_tpu's solver, inputs, history and totals on the canonical
+    layout (its inputs are the same on either layout)."""
     js = jax_solver("canonical")
     jin = js.make_inputs()
     _, jhist = jax.jit(js.solve_primal_history)(js.init_state(), jin)
     jtot, _ = js.solve_unsteady_adjoint(jhist, jin, "Tout")
-    return to_numpy(jin), to_numpy(jhist), to_numpy(jtot)
+    return to_numpy(jin), to_numpy(jhist), to_numpy(jtot), js
 
 
 @pytest.fixture(scope="module", params=LAYOUTS)
@@ -119,8 +119,7 @@ def jax_residuals(jax_case):
     """dafoam_tpu's residual and one vjp at steps 3, 2 of its history,
     perturbed, on the canonical layout (one compile; the port's dense
     layout takes them through face_map_old2new)."""
-    jin, jhist, _ = jax_case
-    js = jax_solver("canonical")
+    jin, jhist, _, js = jax_case
     rng = np.random.default_rng(23)
     W = [{k: a[n] * (1.0 + 0.02 * rng.standard_normal(a[n].shape))
           for k, a in jhist.items()} for n in (3, 2)]
@@ -169,7 +168,7 @@ def test_residuals_unsteady_and_vjp(jax_case, port_case, jax_residuals):
 
 
 def test_history(jax_case, port_case):
-    _, jhist, _ = jax_case
+    _, jhist = jax_case[:2]
     layout, ts, _, hist, counts = port_case
     assert hist["T"].shape[0] == ts.n_steps + 1 == 6
     assert float(hist["T"][-1].max()) <= T_TOP
@@ -185,7 +184,7 @@ def test_history(jax_case, port_case):
 
 
 def test_unsteady_totals(jax_case, port_case):
-    _, _, jtot = jax_case
+    jtot = jax_case[2]
     layout, ts, tin, hist, _ = port_case
     tot, resids = ts.solve_unsteady_adjoint(hist, tin, "Tout")
     assert resids.shape == (5,)

@@ -157,12 +157,16 @@ def test_transonic_p_transpose_solve(transonic_runs):
 
 def test_turbo_residuals_and_vjp_with_omega():
     import test_turbo_cascade as tc
+    from dafoam_tpu.solvers import make_solver as jmake
     from dafoam_tpu_torch.solvers import make_solver as tmake
-    js, jin = tc.make_case()
+    # test_turbo_cascade.make_case on the dense layout: one dafoam_tpu
+    # solver, not one per layout
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tc, "make_solver", lambda o, topo, pts: jmake(
+            dict(o, meshFaceLayout="diaDense"), topo, pts))
+        js, jin = tc.make_case()
     pts, _ = tc.channel_mesh()
     opts = dict(js.option.all, meshFaceLayout="diaDense")
-    from dafoam_tpu.solvers import make_solver as jmake
-    js = jmake(opts, js.topo, pts)
     jin = dict(jin, points=js.points)
     _, topo_t = _torch_box_turbo()
     ts = tmake(opts, topo_t, pts, device="cpu", dtype=F64)

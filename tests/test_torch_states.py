@@ -8,7 +8,9 @@ dafoam_tpu_torch against dafoam_tpu (CPU, f64):
 - one residual-form adjoint solve on that case (20 SIMPLE iterations of
   the port, carried across; segregated PC, 30 FGMRES iterations pinned by
   a zero relative tolerance) under the cell ordering equals the port's
-  under the state ordering and dafoam_tpu's at 1e-10.
+  under the state ordering and dafoam_tpu's at 1e-10 (dafoam_tpu's solve
+  runs jitted, ``run_adjoint``: op by op it compiles each primitive and
+  takes twice as long).
 """
 
 import jax.numpy as jnp
@@ -100,7 +102,7 @@ def test_adjoint_under_cell_ordering():
     js = jax_solver(dict(opts, adjStateOrdering="cell"))
     jin = js.make_inputs()
     wj = {k: jnp.asarray(v) for k, v in convert.state_to_numpy(w).items()}
-    psij, infoj = js.solve_adjoint(wj, jin, "CD")
+    psij, infoj = js.run_adjoint("CD", wj, jin)
     assert int(infoj.iters) == 30
     psij = to_numpy(psij)
     for k in psij:
