@@ -36,6 +36,7 @@ from dafoam_tpu_torch.linalg.lines import (apply_line_solve,
 from dafoam_tpu_torch.ops.fvmatrix import (FvMatrix, banded, matvec,
                                            matvec_fn, matvec_t_fn)
 from dafoam_tpu_torch.parallel.halo import active as active_halo
+from dafoam_tpu_torch.utils import timing
 from dafoam_tpu_torch.utils.precision import guard_tiny
 
 
@@ -178,6 +179,14 @@ def solve(m: FvMatrix, psi0, topo, symmetric=False, rel_tol=1e-7,
         x = solve_fixed(m, psi0, topo, symmetric=symmetric, n_iters=n,
                         rhs=rhs, smoother=smoother)
         return x, SolveInfo(n, 0.0, 0.0, True)
+    return _krylov_solve(m, psi0, topo, symmetric, rel_tol, abs_tol,
+                         max_iters, rhs, pc)
+
+
+@timing.spanned("krylov.solve")
+def _krylov_solve(m, psi0, topo, symmetric, rel_tol, abs_tol, max_iters,
+                  rhs, pc):
+    """The Krylov path of ``solve``."""
     if pc not in ("jacobi", "line", "mg"):
         raise ValueError(f"unknown pc {pc!r}")
     if pc != "jacobi" and active_halo(topo) is not None:

@@ -7,7 +7,10 @@ defect smoothers of the fixed-point adjoint's step map), ``cg_steps`` and
 read) and ``gmres`` (the adjoint's restarted, optionally deflated FGMRES).
 The JAX versions run inside ``lax.while_loop``/``scan``; here the loops
 are Python and the exit tests of ``cg``, ``bicgstab`` and ``gmres`` read
-one number on the host per iteration (one device->host sync).
+one number on the host per iteration (one device->host sync); ``cg`` and
+``bicgstab`` read it through ``timing.host_read`` (sites ``krylov.r0``,
+the initial or restarted residual, and ``krylov.rn``, one per
+iteration).
 The exit rules are the JAX ones exactly:
 
 - cg:        iterate while it < max_iters and ||r|| > tol
@@ -33,7 +36,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from dafoam_tpu_torch.utils import tree
+from dafoam_tpu_torch.utils import timing, tree
 from dafoam_tpu_torch.utils.precision import guard_tiny
 
 
@@ -84,7 +87,7 @@ def cg(matvec: Callable, b, x0=None, precond: Callable | None = None,
     z = precond(r)
     p = z
     rz = tdot(r, z)
-    r0 = tnorm(r).item()
+    r0 = timing.host_read("krylov.r0", tnorm(r))
     tol = max(rel_tol * r0, abs_tol)
     tp = guard_tiny(b.dtype)
 
@@ -105,7 +108,7 @@ def cg(matvec: Callable, b, x0=None, precond: Callable | None = None,
         p = beta * p + z
         rz = rz_new
         it += 1
-        rn = tnorm(r).item()
+        rn = timing.host_read("krylov.rn", tnorm(r))
     return x, SolveInfo(it, r0, rn, rn <= tol)
 
 
@@ -122,7 +125,7 @@ def bicgstab(matvec: Callable, b, x0=None, precond: Callable | None = None,
     precond = precond or _identity
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
-    r0n = tnorm(r).item()
+    r0n = timing.host_read("krylov.r0", tnorm(r))
     tol = max(rel_tol * r0n, abs_tol)
     tb = guard_tiny(b.dtype)
     one = torch.ones((), dtype=b.dtype, device=b.device)
@@ -158,7 +161,7 @@ def bicgstab(matvec: Callable, b, x0=None, precond: Callable | None = None,
         omega = tdot(t, s_vec) / torch.where(tt > tb, tt, tb)
         x_new = x + alpha * phat + omega * shat
         r_new = s_vec - omega * t
-        rn_new = tnorm(r_new).item()
+        rn_new = timing.host_read("krylov.rn", tnorm(r_new))
         rho = rho_new
         it += 1
         finite = math.isfinite(rn_new)
@@ -171,7 +174,7 @@ def bicgstab(matvec: Callable, b, x0=None, precond: Callable | None = None,
             # and force a fresh restart next iteration
             x = bx
             r = b - matvec(bx)
-            rn = tnorm(r).item()
+            rn = timing.host_read("krylov.r0", tnorm(r))
         fresh = not finite
 
     if not math.isfinite(rn) or brn < rn:

@@ -17,6 +17,8 @@ import dataclasses
 
 import numpy as np
 
+from dafoam_tpu_torch.utils import timing
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Patch:
@@ -399,6 +401,7 @@ def apply_cell_permutation(topo: MeshTopology, perm: np.ndarray) -> MeshTopology
     return out
 
 
+@timing.spanned("setup.dia_layout")
 def to_dia_dense(topo: MeshTopology, max_offsets: int = 16):
     """Repack internal faces into the dense offset-major DIA layout.
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from dafoam_tpu_torch.utils import timing
+
 
 def wall_face_mask(topo, kinds=("wall",), names=()):
     m = np.zeros((topo.n_faces - topo.n_internal,), dtype=bool)
@@ -105,6 +107,7 @@ def nearest_wall_distance(cc, points, topo, mask, k=12, chunk=8192):
     return out
 
 
+@timing.spanned("setup.wall_distance")
 def compute_wall_distance(cc, points, topo, kinds=("wall",), names=()):
     """Frozen wall-distance field (nc,) as numpy, from host cell centres
     ``cc`` (nc, 3) and mesh ``points`` (exact surface distance)."""

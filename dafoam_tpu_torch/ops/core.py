@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dafoam_tpu_torch.utils import timing
+
 
 def abs_ad(x: torch.Tensor) -> torch.Tensor:
     """|x| whose derivative at x == 0 is +1, as ``jnp.abs``'s (torch.abs
@@ -33,15 +35,14 @@ def abs_ad(x: torch.Tensor) -> torch.Tensor:
 def maximum(x: torch.Tensor, c) -> torch.Tensor:
     """max(x, c) for a constant c whose derivative at a tie is 1/2, as
     ``jnp.maximum``'s (torch.clamp passes it whole): model states sit
-    exactly on their bounds after a clipped update."""
-    return torch.maximum(x, torch.as_tensor(c, dtype=x.dtype,
-                                            device=x.device))
+    exactly on their bounds after a clipped update. A number c is copied
+    to x's device, which on a CUDA device waits for the stream."""
+    return torch.maximum(x, timing.host_copy("core.constant", c, x))
 
 
 def minimum(x: torch.Tensor, c) -> torch.Tensor:
     """min(x, c), with ``maximum``'s tie rule."""
-    return torch.minimum(x, torch.as_tensor(c, dtype=x.dtype,
-                                            device=x.device))
+    return torch.minimum(x, timing.host_copy("core.constant", c, x))
 
 
 def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:

@@ -40,6 +40,7 @@ from dafoam_tpu_torch.ops.core import boundary_gather, maximum, minimum
 from dafoam_tpu_torch.option import DAOption
 from dafoam_tpu_torch.solvers.base import DASolverBase, PrimalInfo
 from dafoam_tpu_torch.states import StateInfo
+from dafoam_tpu_torch.utils import timing
 
 
 def _window_stats(vals, n, frac):
@@ -83,7 +84,8 @@ class DASimpleFoam(DASolverBase):
         super().__init__(opt, topo, points, device=device, dtype=dtype)
 
         # frozen wall distance (meshWaveFrozen semantics), on the host
-        geom0 = compute_geometry(self.points, topo)
+        with timing.span("setup.geometry"):
+            geom0 = compute_geometry(self.points, topo)
         wd = compute_wall_distance(geom0.cc.cpu().numpy(), points, topo)
         self.wall_dist = self._tensor(wd)
         kw = {"bc_spec": self.bc_spec} \
@@ -400,7 +402,8 @@ class DASimpleFoam(DASolverBase):
     # ------------------------------------------------------------------
     def init_state(self):
         st = super().init_state()
-        geom = compute_geometry(self.points, self.topo)
+        with timing.span("setup.geometry"):
+            geom = compute_geometry(self.points, self.topo)
         inputs = self.make_inputs()
         Ubco = bc.coeffs(self.bc_spec["U"], inputs["bc"].get("U", {}),
                          self.topo, geom, st["U"], rank=1,
@@ -420,66 +423,70 @@ class DASimpleFoam(DASolverBase):
         alpha_p = opt["relaxationFactors"]["fields"].get("p", 0.3)
 
         U, p = state["U"], state["p"]
-        UEqn, U_bco = self._ueqn(state, inputs, geom)
-        p_bco = self._bco_p(p, inputs, geom, state["phi"])
-        p_b = bc.boundary_value(p_bco, p, topo)
-        gradp = fvc.grad(geom, topo, p, p_b)
-        rhs_U = -gradp * geom.vol[:, None]
-        res_U = fvsolve.initial_residual_norm(UEqn, U, topo, rhs=rhs_U)
+        with timing.span("simple.momentum"):
+            UEqn, U_bco = self._ueqn(state, inputs, geom)
+            p_bco = self._bco_p(p, inputs, geom, state["phi"])
+            p_b = bc.boundary_value(p_bco, p, topo)
+            gradp = fvc.grad(geom, topo, p, p_b)
+            rhs_U = -gradp * geom.vol[:, None]
+            res_U = fvsolve.initial_residual_norm(UEqn, U, topo, rhs=rhs_U)
 
-        if opt["simple"]["momentumPredictor"]:
-            U_pred, info = fvsolve.solve(
-                UEqn, U, topo, symmetric=False, rel_tol=lin["uRelTol"],
-                max_iters=lin["uMaxIters"], rhs=rhs_U)
-            self._log_solve("U", info)
-            U_pred = self._bound("U", U_pred)
-        else:
-            U_pred = U
+            if opt["simple"]["momentumPredictor"]:
+                U_pred, info = fvsolve.solve(
+                    UEqn, U, topo, symmetric=False, rel_tol=lin["uRelTol"],
+                    max_iters=lin["uMaxIters"], rhs=rhs_U)
+                self._log_solve("U", info)
+                U_pred = self._bound("U", U_pred)
+            else:
+                U_pred = U
 
-        rAU, rAU_f, HbyA, phiHbyA, pM, p_bco = self._projection(
-            state, inputs, geom, UEqn, U_bco, U_pred)
-        res_p = fvsolve.initial_residual_norm(pM, p, topo)
-        p_new, info = fvsolve.solve(pM, p, topo, symmetric=True,
-                                    rel_tol=lin["pRelTol"],
-                                    max_iters=lin["pMaxIters"],
-                                    pc=lin.get("pPC", "jacobi"))
-        self._log_solve("p", info)
-        phi_new = phiHbyA - fvm.laplacian_flux(geom, topo, rAU_f, p_new,
-                                               p_bco)
-        # explicit pressure relaxation, then momentum corrector
-        p_rel = self._bound("p", p + alpha_p * (p_new - p))
-        p_bco2 = self._bco_p(p_rel, inputs, geom, phi_new)
-        p_b2 = bc.boundary_value(p_bco2, p_rel, topo)
-        gradp2 = fvc.grad(geom, topo, p_rel, p_b2)
-        U_new = self._bound("U", HbyA - rAU[:, None] * gradp2)
+        with timing.span("simple.pressure"):
+            rAU, rAU_f, HbyA, phiHbyA, pM, p_bco = self._projection(
+                state, inputs, geom, UEqn, U_bco, U_pred)
+            res_p = fvsolve.initial_residual_norm(pM, p, topo)
+            p_new, info = fvsolve.solve(pM, p, topo, symmetric=True,
+                                        rel_tol=lin["pRelTol"],
+                                        max_iters=lin["pMaxIters"],
+                                        pc=lin.get("pPC", "jacobi"))
+            self._log_solve("p", info)
+            phi_new = phiHbyA - fvm.laplacian_flux(geom, topo, rAU_f, p_new,
+                                                   p_bco)
+            # explicit pressure relaxation, then momentum corrector
+            p_rel = self._bound("p", p + alpha_p * (p_new - p))
+            p_bco2 = self._bco_p(p_rel, inputs, geom, phi_new)
+            p_b2 = bc.boundary_value(p_bco2, p_rel, topo)
+            gradp2 = fvc.grad(geom, topo, p_rel, p_b2)
+            U_new = self._bound("U", HbyA - rAU[:, None] * gradp2)
 
-        new_state = dict(state, U=U_new, p=p_rel, phi=phi_new)
+            new_state = dict(state, U=U_new, p=p_rel, phi=phi_new)
 
-        if self.turb.model_states:
-            U_b = bc.boundary_value(U_bco, U_new, topo)
-            gradU = fvc.grad(geom, topo, U_new, U_b)
-            relax_t = opt["relaxationFactors"]["equations"].get(
-                "nuTilda", 0.7)
-            new_state = self.turb.correct(
-                new_state, inputs, geom, phi_new, gradU=gradU,
-                rel_tol=lin["turbRelTol"], max_iters=lin["turbMaxIters"],
-                relax=relax_t)
-            for name, info in self.turb.last_solve_info.items():
-                self._log_solve(name, info)
+        with timing.span("simple.turbulence"):
+            if self.turb.model_states:
+                U_b = bc.boundary_value(U_bco, U_new, topo)
+                gradU = fvc.grad(geom, topo, U_new, U_b)
+                relax_t = opt["relaxationFactors"]["equations"].get(
+                    "nuTilda", 0.7)
+                new_state = self.turb.correct(
+                    new_state, inputs, geom, phi_new, gradU=gradU,
+                    rel_tol=lin["turbRelTol"], max_iters=lin["turbMaxIters"],
+                    relax=relax_t)
+                for name, info in self.turb.last_solve_info.items():
+                    self._log_solve(name, info)
 
-        if self.has_T:
-            TEqn, _ = self._teqn_simple(new_state, inputs, geom)
-            alpha_T = opt["relaxationFactors"]["equations"].get("T", 0.7)
-            TEqn = fvx.relax(TEqn, new_state["T"], alpha_T, topo)
-            T_new, info = fvsolve.solve(TEqn, new_state["T"], topo,
-                                        symmetric=False,
-                                        rel_tol=lin["turbRelTol"],
-                                        max_iters=lin["turbMaxIters"])
-            self._log_solve("T", info)
-            new_state = dict(new_state, T=self._bound("T", T_new))
+            if self.has_T:
+                TEqn, _ = self._teqn_simple(new_state, inputs, geom)
+                alpha_T = opt["relaxationFactors"]["equations"].get("T", 0.7)
+                TEqn = fvx.relax(TEqn, new_state["T"], alpha_T, topo)
+                T_new, info = fvsolve.solve(TEqn, new_state["T"], topo,
+                                            symmetric=False,
+                                            rel_tol=lin["turbRelTol"],
+                                            max_iters=lin["turbMaxIters"])
+                self._log_solve("T", info)
+                new_state = dict(new_state, T=self._bound("T", T_new))
 
         return new_state, torch.maximum(res_U, res_p)
 
+    @timing.spanned("simple.solve_primal")
     def solve_primal(self, state, inputs):
         """SIMPLE iterations until max_res <= primalMinResTol (after at
         least primalMinIters, at most primalMaxIters) or the state turns
@@ -489,7 +496,8 @@ class DASimpleFoam(DASolverBase):
         final state by the running mean over the iterations from
         meanStateStart x primalMaxIters on (phi keeps its final value)."""
         opt = self.option
-        geom = self.geometry(inputs)
+        with timing.span("simple.geometry"):
+            geom = self.geometry(inputs)
         tol = opt["primalMinResTol"]
         max_it = int(opt["primalMaxIters"])
         min_it = opt["primalMinIters"]
@@ -521,30 +529,40 @@ class DASimpleFoam(DASolverBase):
                 return not (res <= tol or func_conv())
             return res > tol
 
+        def valid(st):
+            return bool(timing.host_read("simple.valid",
+                                         self.states_valid_t(st)))
+
+        # the validity of each iterate is read at the end of the iteration
+        # that made it, so that the iteration's span holds its reads
         st, it, res = state, 0, math.inf
-        while (it < min_it or unconverged()) and it < max_it \
-                and self.states_valid(st):
-            st, res_t = self.primal_step(st, inputs, geom)
-            if use_mean and it >= start_it:
-                cnt = it + 1 - start_it
-                mean = {k: m + (st[k] - m) / cnt if k != "phi" else m
-                        for k, m in mean.items()}
-            if track:
-                stats = []
-                for j, name in enumerate(func_names):
-                    fvals[j, it] = self.eval_function(name, st, inputs)
-                    stats.append(_window_stats(fvals[j], it + 1, frac))
-                stats = torch.stack([torch.stack(t) for t in stats])
-                fstd, fslope = (float(v) for v in stats.max(dim=0).values)
-            res = float(res_t)
-            it += 1
+        ok = valid(st)
+        while (it < min_it or unconverged()) and it < max_it and ok:
+            with timing.span("simple.iteration"):
+                st, res_t = self.primal_step(st, inputs, geom)
+                if use_mean and it >= start_it:
+                    cnt = it + 1 - start_it
+                    mean = {k: m + (st[k] - m) / cnt if k != "phi" else m
+                            for k, m in mean.items()}
+                if track:
+                    stats = []
+                    for j, name in enumerate(func_names):
+                        fvals[j, it] = self.eval_function(name, st, inputs)
+                        stats.append(_window_stats(fvals[j], it + 1, frac))
+                    stats = torch.stack([torch.stack(t) for t in stats])
+                    fstd, fslope = (
+                        timing.host_read("simple.func_stats", v)
+                        for v in stats.max(dim=0).values)
+                res = timing.host_read("simple.residual", res_t)
+                it += 1
+                ok = valid(st)
             if do_print and it % print_int == 0:
                 extra = f" funcStd={fstd:.6e} funcSlope={fslope:.6e}" \
                     if track else ""
                 print(f"iter {it}: maxRes = {res:.6e}{extra}")
         if use_mean and it > start_it:
             st = {k: mean[k] if k != "phi" else v for k, v in st.items()}
-        ok = self.states_valid(st)
+            ok = valid(st)
         if track:
             # func-std mode never fails on the residual (DASolver.C:2730)
             conv = (res <= tol or func_conv()) and ok
