@@ -9,7 +9,8 @@ case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; fails when torch sees no CUDA device;
 2. build: compiles the DIA kernels (dafoam_tpu_torch/csrc/dia_matvec.cu)
-   with nvcc for sm_90a and reports the seconds and the ptxas summary;
+   and the device PCG's (csrc/pcg.cu) with nvcc for sm_90a and reports
+   the seconds and the ptxas summary;
 3. kernel vs plain: K1 and K2 against their plain torch versions, float32
    and float64, on the band layout and coefficients of the first p,
    nuTilda and U matrices of the 512x512 NACA0012 case and on edge shapes;
@@ -19,6 +20,17 @@ case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
    shared and per-component diagonals; then the autograd Functions' vjp
    and jvp on the card against autograd of the plain banded matvec, and a
    gradient through them keeps its grad_fn;
+3c. device PCG: pcg_init, pcg_dot, pcg_update and pcg_direction on card
+   tensors against their plain versions on a CPU copy, f32 and f64, for
+   three CG iterations on the first p matrix of the 512x512 case, on the
+   benchmark's 917,504-cell pressure-like matrix (pressure_matrix) and on
+   edge shapes, each kernel from the plain version's state: vectors bit
+   for bit, scalars at PCG_REL (the sums run in another order); with the
+   solve over (live 0) the three write nothing; a sum repeats to the bit;
+   one krylov.dia_pcg solve at 917,504 cells capped at 50 against
+   krylov.cg: equal iterations, one K1 and one of each iteration kernel
+   per enqueued iteration, one host read per block. Their times come
+   after phase 7;
 4. golden: the 32x12 NACA0012 SA primal (f64, canonical layout, to
    primalMinResTol 1e-10) through the kernels; CD must match
    tests/golden/values.json naca_sa.CD at 1e-8, and both kernels must have
@@ -74,7 +86,10 @@ case is set up once, before phase 3, and reused by phases 5, 5b, 6 and 6b):
    kernel, its plain version and the one-call library equivalent
    (torch.mv on a CSR copy of the matrix, cuSPARSE), back to back (CUDA
    events), and the bound. They run last, after phase 8b, so that no
-   profiler session precedes the main path's timings;
+   profiler session precedes the main path's timings; then the device
+   PCG's kernels at 262,144 and 917,504 cells: device time per call, the
+   plain version's on the CPU copy (host clock), krylov.cg's torch ops
+   for the same work (the library column) and the bound;
 8. kOmegaSST at full width: the 512x512 case with turbulenceModel
    kOmegaSST (k and omega farfield inletOutlet at 1.5 (0.05 |U_inf|)^2 and
    k_inf / (3 nu), wall k 1e-10 and omega 10 * 6 nu / (beta1 d1^2), d1 the
@@ -237,8 +252,13 @@ each counted from zero; "launches_by_path" splits them, phase 19's as
 "io_primal" and "io_adjoint", phase 20's f64 runs as "shard" (the halo
 route), "shard_reference" (the unsharded route) and "shard_banded" (the
 unsharded route of the 58-band relabelled box)),
-its error against the plain version, its times and its bound. The script
-prints its total wall seconds before those lines.
+its error against the plain version, its times and its bound. On every
+path the device PCG must have launched pcg_init once per solve and each
+iteration kernel once per enqueued iteration (its iterations and the
+masked ones after an exit), with no plain version; the main path's p
+solves must all have taken it. The script prints the solves of
+krylov.COUNTS per path ("krylov_solves") and its total wall seconds
+before those lines.
 """
 
 import argparse
@@ -283,6 +303,22 @@ KERNELS = {
 }
 PRIMAL_KERNELS = ("dia_matvec", "dia_matvec_multi")
 ADJOINT_KERNELS = tuple(KERNELS)
+_PCG_NEW = ("none: krylov.cg's vector algebra fused (dafoam_tpu ran it in "
+            "lax.while_loop, fused by XLA): ")
+PCG_KERNELS = {
+    "pcg_init": {"replaces": _PCG_NEW + "z = M r, p = z, <r,z>, ||r0||, tol",
+                 "vectors": 4},
+    "pcg_dot": {"replaces": _PCG_NEW + "<p,Ap> and alpha", "vectors": 2},
+    "pcg_update": {"replaces": _PCG_NEW + "x, r, z, <r,z>, ||r||, beta and "
+                   "the exit test", "vectors": 8},
+    "pcg_direction": {"replaces": _PCG_NEW + "p = beta p + z", "vectors": 3},
+}
+# krylov.COUNTS: the solves, not launches
+SOLVE_COUNTS = ("pcg_solves", "pcg_iters", "pcg_masked_iters", "cg_solves")
+# the device PCG's sums against the plain versions': the same products
+# summed in another order (a fixed tree of 256 per block, then the blocks)
+PCG_REL = {"float32": 2e-5, "float64": 1e-13}
+PCG_BENCH = (256, 3584)   # pressure_matrix of the benchmark's 917,504 cells
 # NVIDIA H100 SXM data sheet: HBM3 3.35 TB/s, FP32 (non-tensor) 67 TFLOP/s,
 # both at the 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -300,6 +336,35 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+class Kernels:
+    """``ops/dia_kernels`` as the phases use it, with the device PCG's
+    counts beside K1-K3's: ``COUNTS`` reads the launches of both modules
+    and the solves of ``krylov.COUNTS``; ``reset_counts`` zeroes all
+    three. Every other name is the module's."""
+
+    def __init__(self, dk, pk, krylov):
+        self._mods = (dk, pk, krylov)
+
+    def __getattr__(self, name):
+        return getattr(self._mods[0], name)
+
+    @property
+    def COUNTS(self):
+        out = {}
+        for m in self._mods:
+            out.update(m.COUNTS)
+        return out
+
+    def reset_counts(self):
+        for m in self._mods:
+            m.reset_counts()
+
+
+def launched(counts):
+    """The kernels (and plain versions) of ``counts`` that ran."""
+    return {k: v for k, v in counts.items() if v and k not in SOLVE_COUNTS}
 
 
 def naca_options(**over):
@@ -951,16 +1016,19 @@ def phase_device(torch):
     return card
 
 
-def phase_build(dk):
-    t0 = time.perf_counter()
-    path = dk.build()
+def phase_build(dk, pk=None):
+    for source in (dk.SOURCE,) + (() if pk is None else (pk.SOURCE,)):
+        t0 = time.perf_counter()
+        path = dk.build(source)
+        dt = time.perf_counter() - t0
+        regs = [ln.strip() for ln in dk.build_log(source).splitlines()
+                if "registers" in ln or "spill" in ln]
+        say(f"[build] {path.name} ready in {dt:.2f} s")
+        for ln in regs:
+            say(f"[build] {ln}")
     dk._library()
-    dt = time.perf_counter() - t0
-    regs = [ln.strip() for ln in dk.build_log().splitlines()
-            if "registers" in ln or "spill" in ln]
-    say(f"[build] {path.name} ready in {dt:.2f} s")
-    for ln in regs:
-        say(f"[build] {ln}")
+    if pk is not None:
+        pk._library()
 
 
 # ---------------------------------------------------------------------------
@@ -1274,6 +1342,259 @@ def phase_functions(torch, dk, real):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the device PCG
+# ---------------------------------------------------------------------------
+
+def pressure_matrix(nx, ny, dtype, seed=0, device="cpu"):
+    """(diag, coef, offsets, dinv) of -L - G on an nx x ny grid: L a
+    5-point Laplacian with random face weights (10x stiffer along x), G
+    grounding the last column; symmetric negative definite, as the SIMPLE
+    pressure matrix. dinv as fvsolve forms it."""
+    import numpy as np
+    import torch
+    from dafoam_tpu_torch.utils.precision import guard_tiny
+    rng = np.random.default_rng(seed)
+    wx = rng.uniform(5.0, 20.0, (ny, nx))
+    wx[:, -1] = 0.0                          # no face past the row's end
+    wy = rng.uniform(0.5, 2.0, (ny, nx))
+    wy[-1, :] = 0.0
+    east, north = wx.ravel(), wy.ravel()
+    west = np.concatenate([[0.0], east[:-1]])
+    south = np.concatenate([np.zeros(nx), north[:-nx]])
+    ground = np.zeros((ny, nx))
+    ground[:, -1] = 1.0
+    diag = -(east + west + north + south + ground.ravel())
+    coef = np.stack([south, west, east, north])
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+
+    d, c = t(diag), t(coef)
+    td = guard_tiny(dtype)
+    dinv = 1.0 / torch.where(torch.abs(d) > td, d, 1.0)
+    return d, c, (-nx, -1, 1, nx), dinv
+
+
+def _pcg_states(torch, pk, dinv, b):
+    """A device PCG state on b's device and its CPU copy, both from x = 0,
+    r = b."""
+    def state(dv, bv):
+        return pk.PcgState(torch.zeros_like(bv), bv.clone(),
+                           torch.empty_like(bv), torch.empty_like(bv), dv)
+    return state(dinv, b), state(dinv.cpu(), b.cpu())
+
+
+def _pcg_same(torch, pk, sd, sc, names, slots, label, err):
+    """Vectors ``names`` of the card state equal the CPU state's bit for
+    bit; scalars ``slots`` within PCG_REL; IT and LIVE equal. Returns the
+    largest relative error of the scalars so far."""
+    for k in names:
+        check(torch.equal(getattr(sd, k).cpu(), getattr(sc, k)),
+              f"{label}: {k} differs from the plain version's")
+    a, b = sd.s.cpu().tolist(), sc.s.tolist()
+    bar = PCG_REL[str(sd.dtype).replace("torch.", "")]
+    for i in slots:
+        e = abs(a[i] - b[i]) / max(abs(b[i]), 1e-300)
+        check(e <= bar, f"{label}: slot {i} {a[i]!r} against {b[i]!r}")
+        err = max(err, e)
+    check(a[pk.IT] == b[pk.IT] and a[pk.LIVE] == b[pk.LIVE],
+          f"{label}: it/live {a[pk.IT]}/{a[pk.LIVE]} against "
+          f"{b[pk.IT]}/{b[pk.LIVE]}")
+    return err
+
+
+def pcg_compare(torch, dk, pk, mat, b, label, iters=3):
+    """``iters`` CG iterations of the four kernels against their plain
+    versions, each kernel started from the plain state's scalars; returns
+    the largest relative error of a scalar."""
+    d, c, o, dinv = mat
+    sd, sc = _pcg_states(torch, pk, dinv, b)
+    pk.pcg_init(sd, 1e12, 1e-12, 1e-50)
+    pk.pcg_init(sc, 1e12, 1e-12, 1e-50)
+    err = _pcg_same(torch, pk, sd, sc, ("z", "p"),
+                    (pk.RZ, pk.RN, pk.R0, pk.TOL), f"{label} pcg_init", 0.0)
+    for it in range(iters):
+        ap = dk.dia_matvec(d, c, o, sd.p)
+        apc = ap.cpu()
+        for name, call, vecs, slots in (
+                ("pcg_dot", lambda st, a: pk.pcg_dot(st, a), (),
+                 (pk.ALPHA,)),
+                ("pcg_update", lambda st, a: pk.pcg_update(st, a),
+                 ("x", "r", "z"), (pk.RZ, pk.RN, pk.BETA)),
+                ("pcg_direction", lambda st, a: pk.pcg_direction(st),
+                 ("p",), ())):
+            sd.s.copy_(sc.s)
+            call(sd, ap)
+            call(sc, apc)
+            err = _pcg_same(torch, pk, sd, sc, vecs, slots,
+                            f"{label} {name} iteration {it + 1}", err)
+    # the solve over: the iteration kernels write nothing
+    sd.s[pk.LIVE] = 0.0
+    before = [t.clone() for t in (sd.x, sd.r, sd.z, sd.p, sd.s)]
+    pk.pcg_dot(sd, ap)
+    pk.pcg_update(sd, ap)
+    pk.pcg_direction(sd)
+    after = (sd.x, sd.r, sd.z, sd.p, sd.s)
+    check(all(torch.equal(u, v) for u, v in zip(before, after)),
+          f"{label}: a masked iteration wrote")
+    # a sum repeats to the bit
+    sd.s.copy_(sc.s)
+    pk.pcg_update(sd, ap)
+    first = [t.clone() for t in (sd.x, sd.s)]
+    sd.x.copy_(before[0])
+    sd.r.copy_(before[1])
+    sd.s.copy_(sc.s)
+    pk.pcg_update(sd, ap)
+    check(torch.equal(first[0], sd.x) and torch.equal(first[1], sd.s),
+          f"{label}: pcg_update did not repeat to the bit")
+    return err
+
+
+def pcg_solve_check(torch, dk, pk, krylov, mat, b):
+    """One krylov.dia_pcg solve capped at 50 against krylov.cg: the same
+    iterations, one K1 and one of each iteration kernel per enqueued
+    iteration, one host read per block."""
+    from dafoam_tpu_torch.utils import timing
+    d, c, o, dinv = mat
+    xc, ic = krylov.cg(lambda v: dk.dia_matvec(d, c, o, v), b,
+                       precond=lambda r: dinv * r, rel_tol=0.0, max_iters=50)
+    dk.reset_counts()
+    with timing.recording() as rec:
+        x, info = krylov.dia_pcg(d, c, o, dinv, b, rel_tol=0.0,
+                                 max_iters=50)
+    counts = dk.COUNTS
+    k = krylov.PCG_BLOCK[b.device.type]
+    blocks = -(-50 // k)
+    enq = counts["pcg_iters"] + counts["pcg_masked_iters"]
+    reads = rec.aggregate()["sync.krylov.rn"]["count"]
+    err = float(torch.linalg.norm(x - xc) / torch.linalg.norm(xc))
+    say(f"[pcg] one solve at {b.shape[0]} cells capped at 50: iterations "
+        f"{info.iters} (cg {ic.iters}), enqueued {enq}, block {k}, host "
+        f"reads {reads}, K1 {counts['dia_matvec']}, pcg_dot "
+        f"{counts['pcg_dot']}; x rel diff from cg {err:.3e}")
+    check(info.iters == ic.iters == 50 and not info.converged,
+          f"dia_pcg {info} against cg {ic}")
+    check(enq == blocks * k and reads == blocks,
+          f"{enq} enqueued iterations, {reads} reads for block {k}")
+    check(counts["dia_matvec"] == 1 + enq and counts["pcg_init"] == 1,
+          "launches per solve")
+    check_pcg(counts, "dia_pcg solve")
+    check(err < 1e-3, f"dia_pcg x rel diff from cg {err}")
+
+
+def phase_pcg(torch, dk, pk, krylov, real):
+    """Phase 3c; returns {kernel: {"max_rel_err": ...}}."""
+    from dafoam_tpu_torch.utils.precision import guard_tiny
+    dev = real[0][2].device
+    field, offsets, diag, coef, _, _ = real[0]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        d = diag.to(dtype)
+        dinv = 1.0 / torch.where(torch.abs(d) > guard_tiny(dtype), d, 1.0)
+        mats = [(f"{field} matrix {FULL}x{FULL}",
+                 (d, coef.to(dtype), offsets, dinv))]
+        for nx, ny in (PCG_BENCH, (1400, 1500), (1037, 1), (3, 1), (1, 1)):
+            mats.append((f"pressure_matrix {nx}x{ny}",
+                         pressure_matrix(nx, ny, dtype, device=dev)))
+        for label, mat in mats:
+            b = torch.randn(mat[0].shape[0], generator=gen,
+                            device=dev).to(dtype)
+            e = pcg_compare(torch, dk, pk, mat, b, f"{label} {dtype}")
+            bar = PCG_REL[str(dtype).replace("torch.", "")]
+            say(f"[pcg] {label} (n = {b.shape[0]}) {dtype}: 3 iterations, "
+                f"vectors bit for bit, scalars max rel err {e:.3e} (bar "
+                f"{bar})")
+            err = max(err, e)
+    mat = pressure_matrix(*PCG_BENCH, torch.float32, device=dev)
+    b = torch.randn(mat[0].shape[0], generator=gen, device=dev)
+    pcg_solve_check(torch, dk, pk, krylov, mat, b)
+    return {name: {"max_abs_err": 0.0, "max_rel_err": err}
+            for name in PCG_KERNELS}
+
+
+def _pcg_live(torch, pk, mat, b):
+    """A live state one update in (small alpha; no exit in any number of
+    calls), on b's device, and its Ap."""
+    sd, _ = _pcg_states(torch, pk, mat[3], b)
+    pk.pcg_init(sd, 1e12, 0.0, 0.0)
+    sd.s[pk.ALPHA] = 1e-6
+    sd.s[pk.BETA] = 0.5
+    return sd
+
+
+def _pcg_library(torch, krylov, st, ap):
+    """krylov.cg's torch ops for each kernel's work, no host read."""
+    guard, tiny = krylov._guard, st.tiny
+    x, r, z, p, dinv = st.x, st.r, st.z, st.p, st.dinv
+    rz = torch.ones((), dtype=x.dtype, device=x.device)
+    alpha = beta = rz * 1e-6
+
+    def init():
+        zz = dinv * r
+        return krylov.tdot(r, zz), krylov.tnorm(r)
+
+    def update():
+        xx = x + alpha * p
+        rr = r - alpha * ap
+        zz = dinv * rr
+        rzn = krylov.tdot(rr, zz)
+        return xx, rzn / guard(rz, tiny), krylov.tnorm(rr)
+
+    return {"pcg_init": init,
+            "pcg_dot": lambda: rz / guard(krylov.tdot(p, ap), tiny),
+            "pcg_update": update,
+            "pcg_direction": lambda: beta * p + z}
+
+
+def phase_pcg_times(torch, dk, pk, krylov, real, stats):
+    """The device PCG's kernels at the case's p matrix (262,144 cells) and
+    at 917,504, float32: device time per call (profiler), the plain
+    version's on the CPU copy (host clock, median of 5), krylov.cg's
+    torch ops for the same work and the bound (the row's vectors once over
+    the HBM rate); the 262,144-cell numbers go into stats."""
+    from dafoam_tpu_torch.utils.precision import guard_tiny
+    dev = real[0][2].device
+    _, offsets, diag, coef, _, _ = real[0]
+    dinv = 1.0 / torch.where(diag.abs() > guard_tiny(diag.dtype), diag, 1.0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for label, mat in (("p", (diag, coef, offsets, dinv)),
+                       ("pressure_matrix", pressure_matrix(
+                           *PCG_BENCH, torch.float32, device=dev))):
+        n = mat[0].shape[0]
+        b = torch.randn(n, generator=gen, device=dev)
+        sd = _pcg_live(torch, pk, mat, b)
+        sc = _pcg_live(torch, pk, tuple(t.cpu() if torch.is_tensor(t) else t
+                                        for t in mat), b.cpu())
+        ap = dk.dia_matvec(mat[0], mat[1], mat[2], sd.p)
+        apc = ap.cpu()
+        calls = {"pcg_init": (lambda st, a: pk.pcg_init(st, 1e12, 0.0, 0.0)),
+                 "pcg_dot": pk.pcg_dot, "pcg_update": pk.pcg_update,
+                 "pcg_direction": lambda st, a: pk.pcg_direction(st)}
+        lib = _pcg_library(torch, krylov, sd, ap)
+        for name, fn in calls.items():
+            kus = device_us(torch, lambda: fn(sd, ap))
+            lus = device_us(torch, lib[name])
+            plain = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn(sc, apc)
+                plain.append(time.perf_counter() - t0)
+            pms = statistics.median(plain) * 1e3
+            bms = PCG_KERNELS[name]["vectors"] * n * 4 / HBM_BYTES_PER_S \
+                * 1e3
+            say(f"[pcg] time {name} {label} n = {n} float32: device "
+                f"{kus:.2f} us, plain (CPU) {pms * 1e3:.1f} us, krylov.cg's "
+                f"ops {lus:.2f} us, bound {bms * 1e3:.2f} us (bytes)")
+            if label == "p":
+                stats[name].update(ms=kus / 1e3, plain_ms=pms,
+                                   library_ms=lus / 1e3, bound_ms=bms,
+                                   bound_by="bytes", cells=n)
+            else:
+                stats[name][f"ms_{n}"] = kus / 1e3
+
+
+# ---------------------------------------------------------------------------
 # phase 4-5
 # ---------------------------------------------------------------------------
 
@@ -1281,6 +1602,22 @@ def check_counts(counts, phase, names=PRIMAL_KERNELS):
     for name in names:
         check(counts[name] > 0, f"{phase}: {name} was not launched")
     for name in KERNELS:
+        check(counts[name + "_plain"] == 0, f"{phase}: {name}_plain ran")
+    check_pcg(counts, phase)
+
+
+def check_pcg(counts, phase):
+    """The device PCG's launches on one path: pcg_init once per solve,
+    each iteration kernel once per enqueued iteration (its iterations and
+    the masked ones), no plain version."""
+    enq = counts["pcg_iters"] + counts["pcg_masked_iters"]
+    check(counts["pcg_init"] == counts["pcg_solves"],
+          f"{phase}: {counts['pcg_init']} pcg_init launches for "
+          f"{counts['pcg_solves']} device PCG solves")
+    for name in ("pcg_dot", "pcg_update", "pcg_direction"):
+        check(counts[name] == enq, f"{phase}: {counts[name]} {name} "
+              f"launches for {enq} enqueued iterations")
+    for name in PCG_KERNELS:
         check(counts[name + "_plain"] == 0, f"{phase}: {name}_plain ran")
 
 
@@ -2135,7 +2472,7 @@ def phase_hisa_full(torch, dk, make_solver, box):
     check(s.states_valid(st), "hisa state is not finite/valid")
     check(float(mach.max()) > HISA_MACH,
           f"no acceleration over the bump: max Mach {float(mach.max())}")
-    check(sum(counts.values()) == 0, f"hisa primal launched {counts}")
+    check(not launched(counts), f"hisa primal launched {counts}")
 
     state = {k: v.detach() for k, v in st.items()}
     dk.reset_counts()
@@ -2165,7 +2502,7 @@ def phase_hisa_full(torch, dk, make_solver, box):
     check(math.isfinite(duin) and math.isfinite(dpts),
           "hisa totals not finite")
     check(ainfo.iters == HISA_ADJ, f"hisa adjoint: {ainfo}")
-    check(sum(adj.values()) == 0, f"hisa adjoint launched {adj}")
+    check(not launched(adj), f"hisa adjoint launched {adj}")
     return counts, adj, (s, x, state)
 
 
@@ -3683,7 +4020,7 @@ def phase_shard_full(torch, dk, adjsolver, make_solver, box, omesh_pts,
         f"{want['counts']}")
     for k, (e, bar) in errs.items():
         check(e <= bar, f"halo route f64 {k}: err {e} > {bar}")
-    check(got["products"] > 0 and not any(got["counts"].values()),
+    check(got["products"] > 0 and not launched(got["counts"]),
           "the halo route ran a DIA product")
 
     t0 = time.perf_counter()
@@ -3710,7 +4047,7 @@ def phase_shard_full(torch, dk, adjsolver, make_solver, box, omesh_pts,
             + f"), {r['adj_ms']:.2f} ms per fixed-point adjoint product "
             f"(mean of 2), {r['kernels']} device kernels per SIMPLE "
             f"iteration (profiler); launch counts {r['counts']}")
-    check(not any(runs["halo"]["counts"].values()),
+    check(not launched(runs["halo"]["counts"]),
           "the f32 halo route ran a DIA product")
 
     banded = shard_banded(torch, dk, make_solver, box, stats)
@@ -3811,16 +4148,20 @@ def main():
     from dafoam_tpu_torch.mesh import box_hex_mesh
     from dafoam_tpu_torch.mesh.airfoil import omesh_naca0012
     from dafoam_tpu_torch.mesh.topology import from_dia_dense
-    from dafoam_tpu_torch.ops import dia_kernels as dk
+    from dafoam_tpu_torch.linalg import krylov
+    from dafoam_tpu_torch.ops import dia_kernels
     from dafoam_tpu_torch.ops import fvmatrix as fvx
+    from dafoam_tpu_torch.ops import pcg_kernels as pk
     from dafoam_tpu_torch.solvers import make_solver
 
-    phase_build(dk)
+    dk = Kernels(dia_kernels, pk, krylov)
+    phase_build(dk, pk)
     stats = {}
     s, inputs, st0 = setup_full(torch, make_solver, omesh_naca0012)
     real = phase_kernels(torch, dk, fvx, s, stats, FORWARD, "kernels")
     phase_kernels(torch, dk, fvx, s, stats, REVERSE, "k3")
     phase_functions(torch, dk, real)
+    stats.update(phase_pcg(torch, dk, pk, krylov, real))
     phase_golden(torch, dk, make_solver, omesh_naca0012)
     gstate, gwant = phase_golden_adjoint(torch, dk, make_solver,
                                          omesh_naca0012)
@@ -3851,6 +4192,12 @@ def main():
           f"max_res did not fall: {res1} -> {info.max_res}")
     check(math.isfinite(cd), f"CD not finite: {cd}")
     check_counts(counts, "full width")
+    n_p, p_iters = s.solve_stats["p"]
+    check(counts["pcg_solves"] == n_p and counts["pcg_iters"] == p_iters
+          and counts["cg_solves"] == 0,
+          f"full width: {n_p} p solves of {p_iters} iterations, device PCG "
+          f"{counts['pcg_solves']} of {counts['pcg_iters']}, krylov.cg "
+          f"{counts['cg_solves']}")
 
     line_counts, line_p = phase_pc_primal(torch, dk, s, inputs, st, "line",
                                           "line")
@@ -3894,6 +4241,7 @@ def main():
         torch, dk, adjsolver, make_solver, box_hex_mesh,
         s.points.double().cpu().numpy(), from_dia_dense(s.topo), stats)
     phase_kernel_times(torch, dk, real, stats)
+    phase_pcg_times(torch, dk, pk, krylov, real, stats)
 
     if args.profile:
         phase_profile(torch, s, inputs, st)
@@ -3956,6 +4304,27 @@ def main():
                      "bound_ms": st_k["bound_ms"],
                      "bound_by": st_k["bound_by"],
                      "library_ms": st_k["library_ms"]})
+    for name, meta in PCG_KERNELS.items():
+        st_k = stats[name]
+        by_path = {p: c[name] for p, c in paths.items()}
+        rows.append({"name": name, "route": "cuda",
+                     "source": "dafoam_tpu_torch/csrc/pcg.cu",
+                     "replaces": meta["replaces"],
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
+                     "max_abs_err": st_k["max_abs_err"],
+                     "max_rel_err_scalars": st_k["max_rel_err"],
+                     "ms": st_k["ms"], "plain_ms": st_k["plain_ms"],
+                     "plain_on": "cpu", "bound_ms": st_k["bound_ms"],
+                     "bound_by": st_k["bound_by"],
+                     "library_ms": st_k["library_ms"],
+                     "library": "krylov.cg's torch ops",
+                     "cells": st_k["cells"],
+                     "ms_917504": st_k[f"ms_{PCG_BENCH[0] * PCG_BENCH[1]}"]})
+    for path, c in paths.items():
+        check_pcg(c, path)
+    say(json.dumps({"krylov_solves": {
+        p: {k: c[k] for k in SOLVE_COUNTS} for p, c in paths.items()}}))
     say(f"[total] {time.perf_counter() - t_start:.1f} s wall for the "
         "whole script")
     say(json.dumps({"kernels": rows}))

@@ -2,9 +2,11 @@
 
 Port of ``dafoam_tpu.linalg.fvsolve``: symmetric systems (pressure) go to
 CG, asymmetric ones (momentum, turbulence) to BiCGStab, preconditioned with
-the inverse diagonal or (``pc="line"``) with ADI line solves. The solve is
-in correction form, x = x0 + A^-1 (b - A x0), with the inner Krylov solve
-started from zero and its tolerance relative to ||b - A x0||.
+the inverse diagonal or (``pc="line"``) with ADI line solves. A symmetric
+Jacobi solve of a scalar field on a banded mesh runs the device PCG
+(``krylov.dia_pcg``), and so do its transpose and tangent solves. The
+solve is in correction form, x = x0 + A^-1 (b - A x0), with the inner
+Krylov solve started from zero and its tolerance relative to ||b - A x0||.
 
 ``solve`` is differentiable through ``_LinearSolve``, the torch
 counterpart of the JAX package's ``lax.custom_linear_solve``: reverse mode
@@ -28,13 +30,14 @@ from dafoam_tpu_torch.adjoint.precond import transpose
 from dafoam_tpu_torch.linalg import mg as mgmod
 from dafoam_tpu_torch.linalg.krylov import (SolveInfo, bicgstab,
                                             bicgstab_steps, cg, cg_steps,
-                                            chebyshev_steps, jacobi_steps)
+                                            chebyshev_steps, dia_pcg,
+                                            jacobi_steps)
 from dafoam_tpu_torch.linalg.lines import (apply_line_solve,
                                            build_line_solves,
                                            cell_major_matvec,
                                            line_directions, line_solver)
-from dafoam_tpu_torch.ops.fvmatrix import (FvMatrix, banded, matvec,
-                                           matvec_fn, matvec_t_fn)
+from dafoam_tpu_torch.ops.fvmatrix import (FvMatrix, banded, dia_bands,
+                                           matvec, matvec_fn, matvec_t_fn)
 from dafoam_tpu_torch.parallel.halo import active as active_halo
 from dafoam_tpu_torch.utils import timing
 from dafoam_tpu_torch.utils.precision import guard_tiny
@@ -69,7 +72,9 @@ def fixed_inner(scale: float = 1.0, smoother: str = "linear"):
 class _Plan:
     """What one implicit solve needs besides its tensor inputs: the frozen
     matrix, its forward and transposed DIA products, the preconditioners,
-    the Krylov method and its tolerances. ``info`` holds the forward
+    the Krylov method and its tolerances; for the device PCG instead of
+    the last four, ``pcg``: ``krylov.dia_pcg``'s operands (diag, coef,
+    offsets, dinv) of the symmetric matrix. ``info`` holds the forward
     solve's SolveInfo."""
 
     def __init__(self, **kw):
@@ -77,9 +82,19 @@ class _Plan:
         self.info = None
 
     def forward_solve(self, rhs):
-        return self.solver(self.mv, rhs, precond=self.prec,
-                           rel_tol=self.rel_tol, abs_tol=self.abs_tol,
-                           max_iters=self.max_iters)
+        return self._solve(rhs, self.mv, self.prec, self.rel_tol,
+                           self.max_iters)
+
+    def transpose_solve(self, rhs):
+        return self._solve(rhs, self.mv_t, self.prec_t, self.trans_rel_tol,
+                           self.trans_max_iters)
+
+    def _solve(self, rhs, mv, prec, rel_tol, max_iters):
+        if self.pcg is not None:
+            return dia_pcg(*self.pcg, rhs, rel_tol=rel_tol,
+                           abs_tol=self.abs_tol, max_iters=max_iters)
+        return self.solver(mv, rhs, precond=prec, rel_tol=rel_tol,
+                           abs_tol=self.abs_tol, max_iters=max_iters)
 
     def matrix_product(self, diag, lower, upper, x):
         """(diag, lower, upper) applied to x in the solve's layout."""
@@ -119,10 +134,7 @@ class _LinearSolve(torch.autograd.Function):
     def backward(ctx, ct):
         (delta,) = ctx.saved_tensors
         plan = ctx.plan
-        lam, _ = plan.solver(plan.mv_t, ct.contiguous(),
-                             precond=plan.prec_t, rel_tol=plan.trans_rel_tol,
-                             abs_tol=plan.abs_tol,
-                             max_iters=plan.trans_max_iters)
+        lam, _ = plan.transpose_solve(ct.contiguous())
         need = ctx.needs_input_grad[:3]
         grads = [None, None, None]
         if any(need):
@@ -208,14 +220,19 @@ def _krylov_solve(m, psi0, topo, symmetric, rel_tol, abs_tol, max_iters,
     d = d.detach()
     td = guard_tiny(d.dtype)
     dinv = 1.0 / torch.where(torch.abs(d) > td, d, 1.0)
-    mv = matvec_fn(mf, topo, component_major=cm)
-    mv_t = mv if symmetric else matvec_t_fn(mf, topo, component_major=cm)
 
     def prec(r):
         return dinv * r
 
     prec_t = prec
-    solver = cg if symmetric else bicgstab
+    pcg = _pcg_operands(mf, psi0, topo, symmetric, pc, dinv)
+    if pcg is None:
+        mv = matvec_fn(mf, topo, component_major=cm)
+        mv_t = mv if symmetric else matvec_t_fn(mf, topo,
+                                                component_major=cm)
+        solver = cg if symmetric else bicgstab
+    else:
+        mv = mv_t = solver = None
     if pc == "mg":
         if m.diag.ndim == 1 and psi0.ndim == 1 \
                 and mgmod.grid_structure(topo) is not None:
@@ -238,7 +255,7 @@ def _krylov_solve(m, psi0, topo, symmetric, rel_tol, abs_tol, max_iters,
         solver = bicgstab
 
     plan = _Plan(m=mf, topo=topo, cm=cm, mv=mv, mv_t=mv_t, prec=prec,
-                 prec_t=prec_t, solver=solver, rel_tol=rel_tol,
+                 prec_t=prec_t, solver=solver, pcg=pcg, rel_tol=rel_tol,
                  abs_tol=abs_tol, max_iters=max_iters,
                  trans_rel_tol=min(rel_tol, 1e-10),
                  trans_max_iters=max(max_iters, 1000))
@@ -248,6 +265,24 @@ def _krylov_solve(m, psi0, topo, symmetric, rel_tol, abs_tol, max_iters,
     if cm:
         x = x.t()
     return x, plan.info
+
+
+def _pcg_operands(mf, psi0, topo, symmetric, pc, dinv):
+    """``krylov.dia_pcg``'s operands (diag, coef, offsets, dinv) when the
+    solve can take the device PCG: a symmetric Jacobi-preconditioned solve
+    of a scalar (n,) float32 or float64 field on a banded mesh, off the
+    halo route; else None. A = A^T, so the transpose solves take them
+    too."""
+    if not (symmetric and pc == "jacobi" and psi0.ndim == 1
+            and mf.diag.ndim == 1
+            and mf.diag.dtype in (torch.float32, torch.float64)
+            and active_halo(topo) is None):
+        return None
+    bands = dia_bands(mf, topo)
+    if bands is None:
+        return None
+    offsets, coef = bands
+    return mf.diag.contiguous(), coef.contiguous(), offsets, dinv
 
 
 def solve_fixed(m: FvMatrix, psi0, topo, symmetric=False, n_iters=20,

@@ -10,10 +10,16 @@ are Python and the exit tests of ``cg``, ``bicgstab`` and ``gmres`` read
 one number on the host per iteration (one device->host sync); ``cg`` and
 ``bicgstab`` read it through ``timing.host_read`` (sites ``krylov.r0``,
 the initial or restarted residual, and ``krylov.rn``, one per
-iteration).
+iteration). ``dia_pcg`` is ``cg`` with the Jacobi preconditioner on a
+banded matrix, run on the device: its vector algebra in the kernels of
+``ops/pcg_kernels.py``, its scalars and exit test on the card, and one
+read of the exit test per block of ``PCG_BLOCK`` iterations.
+``COUNTS`` says how often it engages: the solves of ``dia_pcg`` and of
+``cg``, ``dia_pcg``'s iterations and its masked ones, enqueued after a
+solve's exit.
 The exit rules are the JAX ones exactly:
 
-- cg:        iterate while it < max_iters and ||r|| > tol
+- cg:        iterate while it < max_iters and ||r|| > tol (dia_pcg too)
 - bicgstab:  iterate while it < max_iters and ||r|| finite and > tol
 - gmres:     a cycle stops when |g[j+1]| <= tol or after ``restart`` steps;
              cycles repeat while it < max_iters and the cycle's residual
@@ -36,8 +42,18 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from dafoam_tpu_torch.ops import dia_kernels
+from dafoam_tpu_torch.ops import pcg_kernels as pk
 from dafoam_tpu_torch.utils import timing, tree
 from dafoam_tpu_torch.utils.precision import guard_tiny
+
+COUNTS = {"pcg_solves": 0, "pcg_iters": 0, "pcg_masked_iters": 0,
+          "cg_solves": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 class SolveInfo(NamedTuple):
@@ -81,6 +97,7 @@ def _guard(v, tiny):
 
 def cg(matvec: Callable, b, x0=None, precond: Callable | None = None,
        rel_tol=1e-6, abs_tol=1e-50, max_iters=500):
+    COUNTS["cg_solves"] += 1
     precond = precond or _identity
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
@@ -110,6 +127,51 @@ def cg(matvec: Callable, b, x0=None, precond: Callable | None = None,
         it += 1
         rn = timing.host_read("krylov.rn", tnorm(r))
     return x, SolveInfo(it, r0, rn, rn <= tol)
+
+
+# Iterations enqueued between two reads of dia_pcg's exit test, by device
+# type. On the card a read stops the pipeline: the host waits for the
+# queued work and the card then waits for the next launches; an iteration
+# enqueued after the exit costs its launches and a K1 product. On the CPU
+# a read costs nothing, so every iteration is read.
+PCG_BLOCK = {"cpu": 1, "cuda": 10}
+
+
+def dia_pcg(diag, coef, offsets, dinv, b, rel_tol=1e-6, abs_tol=1e-50,
+            max_iters=500):
+    """Jacobi-preconditioned CG from zero on the banded matrix ``diag``,
+    ``coef`` at ``offsets`` (K1's operands) with the inverse diagonal
+    ``dinv``: ``cg``'s algorithm, exit rule and SolveInfo with precond
+    ``dinv * r``.
+
+    An iteration is K1 (``dia_kernels.dia_matvec``, looked up at each
+    call) and ``pcg_dot``, ``pcg_update`` and ``pcg_direction``; the
+    scalars stay in a state array on b's device. The host enqueues
+    ``PCG_BLOCK[device]`` iterations, then reads [it, rn, live, r0] once
+    (site ``krylov.rn``); iterations enqueued after the exit change
+    nothing. On the CPU (a block of one) the x is cg's bit for bit."""
+    x = torch.zeros_like(b)
+    r = b - dia_kernels.dia_matvec(diag, coef, offsets, x)
+    p = torch.empty_like(b)
+    st = pk.PcgState(x, r, torch.empty_like(b), p, dinv)
+    pk.pcg_init(st, max_iters, rel_tol, abs_tol)
+    block = PCG_BLOCK[b.device.type]
+    enqueued = 0
+    while True:
+        for _ in range(block):
+            ap = dia_kernels.dia_matvec(diag, coef, offsets, p)
+            pk.pcg_dot(st, ap)
+            pk.pcg_update(st, ap)
+            pk.pcg_direction(st)
+        enqueued += block
+        it, rn, live, r0 = timing.host_read("krylov.rn", st.s[:4])
+        if not live:
+            break
+    it = int(it)
+    COUNTS["pcg_solves"] += 1
+    COUNTS["pcg_iters"] += it
+    COUNTS["pcg_masked_iters"] += enqueued - it
+    return x, SolveInfo(it, r0, rn, rn <= max(rel_tol * r0, abs_tol))
 
 
 # ---------------------------------------------------------------------------

@@ -187,23 +187,23 @@ def _nvcc() -> str:
                        "built from dafoam_tpu_torch/csrc at first use")
 
 
-def library_path() -> Path:
-    """Where the built library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+def library_path(source: Path = SOURCE) -> Path:
+    """Where the built library for ``source`` and the flags lives."""
+    h = hashlib.sha256(source.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"dia_matvec_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the CUDA source unless the library for this source hash
+def build(source: Path = SOURCE) -> Path:
+    """Compile a CUDA source of ``csrc/`` unless the library for its hash
     exists. The compiler's report (ptxas registers/spills) is kept beside
     it as ``.log``. Returns the library path."""
-    out = library_path()
+    out = library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
@@ -213,9 +213,9 @@ def build() -> Path:
     return out
 
 
-def build_log() -> str:
+def build_log(source: Path = SOURCE) -> str:
     """The compiler report of the current build ('' before a build)."""
-    log = library_path().with_suffix(".log")
+    log = library_path(source).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
@@ -265,13 +265,14 @@ def _check(name, x, offsets, operands):
     if len(offsets) > MAX_OFFSETS:
         raise ValueError(f"{name}: at most {MAX_OFFSETS} offsets, got "
                          f"{len(offsets)}")
+    dev, dtype = x.device, x.dtype
     for label, (t, shapes) in operands.items():
-        if t.device != x.device or t.dtype != x.dtype:
+        if t.device != dev or t.dtype != dtype:
             raise ValueError(f"{name}: {label} is {t.dtype} on {t.device}, "
-                             f"expected {x.dtype} on {x.device}")
+                             f"expected {dtype} on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
-        if tuple(t.shape) not in shapes:
+        if t.shape not in shapes:
             raise ValueError(f"{name}: {label} must be one of {shapes}, got "
                              f"{tuple(t.shape)}")
 
@@ -289,8 +290,20 @@ def _component_field(name, x):
     return x.shape
 
 
+# On the card a launch's host time is most of a Krylov iteration's: the
+# offsets' C arrays and the entry points are made once, not per call.
+_OFFSET_ARGS: dict = {}
+_ENTRY: dict = {}
+
+
 def _offsets_arg(offsets):
-    return (ctypes.c_int * max(1, len(offsets)))(*offsets)
+    """The C array of ``offsets`` (a tuple of ints), kept per tuple; the
+    kernels only read it."""
+    arr = _OFFSET_ARGS.get(offsets)
+    if arr is None:
+        arr = (ctypes.c_int * max(1, len(offsets)))(*offsets)
+        _OFFSET_ARGS[offsets] = arr
+    return arr
 
 
 def _stream(x):
@@ -299,14 +312,18 @@ def _stream(x):
 
 def _launch(name, x, *args):
     """Call the library entry point ``name`` for x's dtype and count it."""
-    rc = getattr(_library(), f"{name}_{_SUFFIX[x.dtype]}")(*args, _stream(x))
+    fn = _ENTRY.get((name, x.dtype))
+    if fn is None:
+        fn = getattr(_library(), f"{name}_{_SUFFIX[x.dtype]}")
+        _ENTRY[(name, x.dtype)] = fn
+    rc = fn(*args, _stream(x))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     COUNTS[name] += 1
 
 
 def _ints(offsets):
-    return tuple(int(o) for o in offsets)
+    return tuple(map(int, offsets))
 
 
 def dia_matvec(diag, coef, offsets, x):

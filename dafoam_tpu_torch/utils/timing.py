@@ -27,10 +27,11 @@ profiler's host timeline on the device trace's clock and lands in the
 Chrome export of ``trace()``, which installs a recorder for its block
 when none is: the phases beside the kernels they launch.
 
-Host reads. ``host_read(site, t)`` is ``t.item()``, the one place where
-the solver's loops wait for the device to read a number: the SIMPLE
-residual and state validity, the Krylov norms. With a recorder installed
-the read is recorded as a span ``sync.<site>`` whose length is the host's
+Host reads. ``host_read(site, t)`` is ``t.item()`` (``t.tolist()`` for a
+few numbers read at once), the one place where the solver's loops wait
+for the device to read a number: the SIMPLE residual and state validity,
+the Krylov norms. With a recorder installed the read is recorded as a
+span ``sync.<site>`` whose length is the host's
 wait for the device; these spans never enter the profiler, so they add
 no event to a profiled run. ``host_copy(site, value, like)`` is the other
 way: a number from the host made a tensor on the device, a copy that
@@ -163,15 +164,19 @@ def spanned(name):
     return wrap
 
 
+def _numbers(t):
+    return t.item() if t.numel() == 1 else t.tolist()
+
+
 def host_read(site, t):
-    """``t.item()``; with a recorder installed, recorded as the span
-    ``sync.<site>``."""
+    """``t.item()``, or ``t.tolist()`` for more than one element: one read;
+    with a recorder installed, recorded as the span ``sync.<site>``."""
     rec = _REC
     if rec is None:
-        return t.item()
+        return _numbers(t)
     i = rec._open("sync." + site)
     try:
-        return t.item()
+        return _numbers(t)
     finally:
         rec._close(i)
 

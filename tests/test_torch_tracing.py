@@ -11,6 +11,8 @@ Krylov solves exiting on their tolerances:
 - on, every Krylov solve lies in a phase of the SIMPLE step, there is one
   ``krylov.solve`` span per logged solve and one ``krylov.rn`` read per
   inner iteration, and the set-up records its own spans;
+- with a block of several iterations forced on the device PCG of the p
+  solves, one ``krylov.rn`` read per block, and the same state;
 - under a CPU ``torch.profiler`` session the phases appear as host
   events, and every host read of a number (``aten::_local_scalar_dense``)
   lies inside a ``sync.*`` read span;
@@ -123,6 +125,26 @@ def test_spans_nest_and_count_the_solves(case):
     assert agg["sync.simple.valid"]["count"] == ITERS + 1
     it = agg["simple.iteration"]
     assert 0.0 < it["self_seconds"] < it["seconds"]
+
+
+def test_one_rn_read_per_block_of_the_device_pcg(case, monkeypatch):
+    from dafoam_tpu_torch.linalg import krylov
+    one, _ = chunk(case)
+    block = 4
+    monkeypatch.setitem(krylov.PCG_BLOCK, "cpu", block)
+    krylov.reset_counts()
+    with timing.recording() as rec:
+        st, stats = chunk(case)
+    for k in one:   # the iterations after an exit change nothing
+        assert torch.equal(one[k], st[k]), k
+    n_p, p_iters = stats["p"]
+    counts = krylov.COUNTS
+    assert counts["pcg_solves"] == n_p and counts["cg_solves"] == 0
+    assert counts["pcg_iters"] == p_iters
+    blocks, rest = divmod(p_iters + counts["pcg_masked_iters"], block)
+    assert rest == 0 and n_p <= blocks < p_iters
+    others = sum(v[1] for name, v in stats.items() if name != "p")
+    assert rec.aggregate()["sync.krylov.rn"]["count"] == others + blocks
 
 
 def test_setup_spans(case):
