@@ -33,8 +33,9 @@ def small_bench(tmp_path):
     benchmark's files, for tests that add files to it. Returns (root,
     base)."""
     base = tmp_path / "port_bench"
-    for sub in ("configs", "traffic", "workloads", "metrics"):
-        shutil.copytree(os.path.join(HERE, sub), base / sub)
+    for sub in ("configs", "reference", "traffic", "workloads", "metrics"):
+        shutil.copytree(os.path.join(HERE, sub), base / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.join(os.path.dirname(HERE), "BENCHMARK.json"),
                 tmp_path / "BENCHMARK.json")
     return str(tmp_path), str(base)

@@ -1,6 +1,6 @@
-"""The control of ``correct``: the plain reference in float32 with its
-state rounded to bfloat16 after every SIMPLE iteration, put in the
-program's place, which the check has to find not correct.
+"""The control of ``correct``: the configuration's plain reference in
+float32 with its state rounded to bfloat16 after every SIMPLE iteration,
+put in the program's place, which the check has to find not correct.
 
     python3 -m port_bench.control --workload <cell> --seeds 1 2 3
 
@@ -23,22 +23,23 @@ def control_run(workload, seed, *, device="cuda", size=None, base=None,
     """{check: (value, limit)} and notes of the control on one seed."""
     from port_bench import case as casemod
     from port_bench import meshgen, spec
-    from port_bench.drive import Cell, Spans
-    from port_bench.reference.judge import judge
+    from port_bench.drive import Spans
     from port_bench.run import HERE, ROOT
     from port_bench.system import Control
 
     base = base or HERE
     cell = spec.load_cell(spec.load_benchmark(root or ROOT), workload, base)
+    loop, judge = spec.loop_and_judge(cell["traffic"]["kind"])
+    reference = spec.reference_case(cell["config"], base)
     opts, _ = casemod.options(cell["config"], cell["traffic"], seed)
     mesh = meshgen.omesh(**casemod.mesh_spec(cell["config"], size))
     case = {"mesh": mesh}
-    ctl = Control(device)
-    c = Cell(ctl, cell["traffic"], opts, Spans(ctl.sync)).setup(case)
+    ctl = Control(device, reference)
+    c = loop(ctl, cell["traffic"], opts, Spans(ctl.sync)).setup(case)
     c.run_window(0.0)
     out = c.outputs()
     del c
-    return judge(case, opts, out, cell["limits"], device)
+    return judge(reference, case, opts, out, cell["limits"], device)
 
 
 def main(argv=None):

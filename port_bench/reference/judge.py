@@ -1,9 +1,14 @@
-"""The comparison that decides ``correct``.
+"""The comparisons that decide ``correct``, one judge per traffic kind
+(``spec.KINDS``).
 
-It runs after the window, once the program's peak memory has been read and
-its solver freed. The plain reference (``plain.py``, float64) is built
-from the benchmark's own mesh arrays and options, never from what the
-program read or derived. What it compares:
+Each runs after the window, once the program's peak memory has been read
+and its solver freed. The plain reference is the configuration's own
+(``spec.reference_case``), run in float64 and built from the benchmark's
+own mesh arrays and options, never from what the program read or
+derived. The program's face flux phi is read in the mesh's face order
+through the program's face layout (``drive.face_layout``).
+
+``judge_primal`` (kind "primal") compares:
 
 - ``start_gap``: the reference follows the program's warm-up chunk of
   SIMPLE iterations from its own initial state, which checks the start.
@@ -26,8 +31,7 @@ program read or derived. What it compares:
 
 The reference follows the last chunk from the program's own state: the
 primal is a long iteration, and float32 rounding leaves two runs apart by
-more than one chunk's change. The program's face flux phi is read in the
-mesh's face order through the program's face layout (``drive.face_layout``).
+more than one chunk's change.
 """
 
 from __future__ import annotations
@@ -92,10 +96,10 @@ def _worst(gaps):
         else math.inf
 
 
-def judge(case, opts, out, limits, device):
-    """The compared numbers of one run as {name: (value, limit)} plus
-    notes, from the program's outputs ``out`` (``drive.Cell.outputs``)."""
-    from port_bench.reference.plain import Case
+def judge_primal(Case, case, opts, out, limits, device):
+    """The compared numbers of one primal run as {name: (value, limit)}
+    plus notes, from the program's outputs ``out``
+    (``drive.Cell.outputs``); ``Case`` is the configuration's reference."""
     torch.backends.cuda.matmul.allow_tf32 = False
     ref = Case(case["mesh"], opts, device=device, dtype=torch.float64)
     idx = face_index(out["faces"], case["mesh"])

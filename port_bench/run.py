@@ -73,13 +73,14 @@ def run(workload, seed, seconds, trace, *, device="cuda", size=None,
 
     from port_bench import case as casemod
     from port_bench import meshgen, spec
-    from port_bench.drive import Cell, Spans
-    from port_bench.reference.judge import judge
+    from port_bench.drive import Spans
     from port_bench.system import Program
     from port_bench.trace import Traced
 
     cell = spec.load_cell(spec.load_benchmark(root), workload, base)
     config, traffic = cell["config"], cell["traffic"]
+    loop, judge = spec.loop_and_judge(traffic["kind"])
+    reference = spec.reference_case(config, base)
     opts, aoa = casemod.options(config, traffic, seed)
     mspec = casemod.mesh_spec(config, size)
     on_cuda = torch.device(device).type == "cuda"
@@ -94,7 +95,7 @@ def run(workload, seed, seconds, trace, *, device="cuda", size=None,
         case_dir, wrote = meshgen.cached_case(os.path.join(CACHE, "mesh"),
                                               mspec, mesh)
     case = {"dir": case_dir, "mesh": mesh, "key": key}
-    c = Cell(system, traffic, opts, spans).setup(case)
+    c = loop(system, traffic, opts, spans).setup(case)
     system.sync()
     setup_s = time.perf_counter() - T_START
     say(f"[setup] {workload} seed {seed}: aoa {aoa:.6f} deg, "
@@ -123,7 +124,8 @@ def run(workload, seed, seconds, trace, *, device="cuda", size=None,
     t0 = time.perf_counter()
     if case["mesh"] is None:
         case["mesh"] = meshgen.omesh(**mspec)
-    checks, notes = judge(case, opts, out, cell["limits"], device)
+    checks, notes = judge(reference, case, opts, out, cell["limits"],
+                          device)
     host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
     dev_peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_cuda else 0
     say(f"[check] reference {time.perf_counter() - t0:.3f} s; device peak "

@@ -3,13 +3,18 @@
 ``BENCHMARK.json`` (at the root of the checkout) names each cell's
 configuration and traffic; the files are
 
-- ``configs/<config>.json``: the configuration (options, mesh, inflow);
-- ``traffic/<traffic>.json``: the traffic mix (kind of loop and its sizes);
+- ``configs/<config>.json``: the configuration (options, mesh, inflow,
+  and ``reference``, the module of its plain reference, ``plain`` when
+  absent);
+- ``reference/<reference>.py``: a plain reference, with ``Case``;
+- ``traffic/<traffic>.json``: the traffic mix (its ``kind`` of loop and
+  its sizes);
 - ``workloads/<cell>.json``: the cell's limits for ``correct``;
 - ``metrics/<metric>.py``: one reader per metric, ``read(ctx)``.
 
-A later change adds a configuration, a mix, a cell or a metric by adding
-files; nothing here names one.
+A later change adds a configuration, its reference, a mix, a cell or a
+metric by adding files; nothing here names one. A new kind of loop is
+the one thing that takes an entry in ``KINDS``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,11 @@ import json
 import os
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+# a traffic kind: the loop of ``drive.py`` that drives it and the function
+# of ``reference/judge.py`` that judges what the loop hands over
+KINDS = {"primal": ("Cell", "judge_primal")}
+DEFAULT_REFERENCE = "plain"
 
 
 def _json(path):
@@ -42,6 +52,17 @@ def load_cell(bench, name, base=HERE):
     config = _json(os.path.join(base, "configs", cell["config"] + ".json"))
     traffic = _json(os.path.join(base, "traffic", cell["traffic"] + ".json"))
     limits = _json(os.path.join(base, "workloads", name + ".json"))
+    kind = traffic.get("kind")
+    if kind not in KINDS:
+        raise ValueError(f"traffic {cell['traffic']!r} of workload {name!r} "
+                         f"has kind {kind!r}; the harness has a loop for "
+                         f"{sorted(KINDS)}")
+    ref = reference_path(config, base)
+    if not os.path.isfile(ref):
+        raise ValueError(f"configuration {cell['config']!r} of workload "
+                         f"{name!r} names the reference module "
+                         f"{config.get('reference', DEFAULT_REFERENCE)!r}, "
+                         f"and there is no {ref}")
 
     def reported(group):
         return [m for m in bench[group]
@@ -60,3 +81,35 @@ def metric_reader(metric, base=HERE):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def loop_and_judge(kind):
+    """(the loop class of ``drive.py``, the judge of ``reference/judge.py``)
+    of a traffic kind."""
+    from port_bench import drive
+    from port_bench.reference import judge
+    loop, jd = KINDS[kind]
+    return getattr(drive, loop), getattr(judge, jd)
+
+
+def reference_path(config, base=HERE):
+    return os.path.join(base, "reference", config.get(
+        "reference", DEFAULT_REFERENCE) + ".py")
+
+
+_REFERENCES = {}
+
+
+def reference_case(config, base=HERE):
+    """The ``Case`` class of the configuration's plain reference, the
+    module ``reference/<reference>.py`` (``plain`` when the configuration
+    names none), loaded from its file once per process."""
+    path = reference_path(config, base)
+    if path not in _REFERENCES:
+        name = os.path.splitext(os.path.basename(path))[0]
+        spec = importlib.util.spec_from_file_location(
+            "port_bench_reference_" + name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _REFERENCES[path] = mod.Case
+    return _REFERENCES[path]

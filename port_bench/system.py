@@ -5,12 +5,13 @@ control.
 with ``mesh.polymesh.read_polymesh`` and builds the solver with
 ``solvers.make_solver``, in float32 on the device, as a user does.
 
-``Control`` is the plain reference (``reference/plain.py``) behind the
-part of the solver's interface that ``drive.py`` uses, in float32 with the
-state rounded to bfloat16, the precision below the configuration's
-float32, after every SIMPLE iteration, and the function's value rounded
-too. The arithmetic between those roundings stays float32: a SIMPLE
-iteration wholly in bfloat16 does not stay finite.
+``Control`` is the configuration's plain reference
+(``spec.reference_case``) behind the part of the solver's interface that
+``drive.py`` uses, in float32 with the state rounded to bfloat16, the
+precision below the configuration's float32, after every SIMPLE
+iteration, and the function's value rounded too. The arithmetic between
+those roundings stays float32: a SIMPLE iteration wholly in bfloat16 does
+not stay finite.
 """
 
 from __future__ import annotations
@@ -86,8 +87,9 @@ class ControlSolver:
 
 
 class Control:
-    def __init__(self, device):
+    def __init__(self, device, Case):
         self.device = device
+        self.Case = Case
 
     def sync(self):
         _sync(self.device)
@@ -97,7 +99,5 @@ class Control:
 
     def make_solver(self, opts, topo, mesh):
         import torch
-
-        from port_bench.reference.plain import Case
-        return ControlSolver(Case(mesh, opts, device=self.device,
-                                  dtype=torch.float32), opts)
+        return ControlSolver(self.Case(mesh, opts, device=self.device,
+                                       dtype=torch.float32), opts)

@@ -118,3 +118,32 @@ def test_broken_primal_is_not_correct(small_bench, monkeypatch, cell,
     monkeypatch.setattr(DASimpleFoam, "primal_step", bad_step)
     r = _run(small_bench, cell)
     assert not r["correct"] and _failing(r), r["checks"]
+
+
+# the parent commit's checks and notes of this run (one torch thread), to
+# the last digit: the dispatch on the traffic kind and the configuration's
+# reference leaves the primal cell's comparison as it was
+PARENT_PRIMAL = {
+    "checks": {"start_gap": {"value": 0.00028888428655542906, "limit": 0.7},
+               "state_gap": {"value": 5.824820126011658e-06, "limit": 0.08},
+               "cd_gap": {"value": 4.343476152479964e-08, "limit": 5e-05}},
+    "notes": {"start_gap_by_field": {"U": 1.347259872521465e-05,
+                                     "p": 6.018333304044625e-06,
+                                     "nuTilda": 1.1249215261853032e-05,
+                                     "phi": 0.00028888428655542906},
+              "state_gap_by_field": {"U": 9.128643357899497e-07,
+                                     "p": 1.8020522184741055e-06,
+                                     "nuTilda": 5.824820126011658e-06,
+                                     "phi": 1.3861529715766806e-07},
+              "cd": 0.007562083192169666,
+              "cd_reference": 0.007562083520626961}}
+
+
+def test_primal_checks_are_the_parents(small_bench):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        r = _run(small_bench, "sa_primal_1m")
+    finally:
+        torch.set_num_threads(threads)
+    assert {"checks": r["checks"], "notes": r["notes"]} == PARENT_PRIMAL
